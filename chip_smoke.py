@@ -1,0 +1,426 @@
+#!/usr/bin/env python3
+"""On-chip smoke test of the PyTorch port (``src/repro_torch``).
+
+Run from the root of a checkout on a machine with one NVIDIA H100::
+
+    python3 chip_smoke.py
+
+It builds the hand-written CUDA kernels from ``src/repro_torch/csrc``, holds
+each against its plain PyTorch version on the card, times them at the main
+path's shapes, checks a full-width minicpm-2b (two layers) on the card
+against the same weights on the CPU, and serves 16 full-width, full-depth
+minicpm-2b requests through continuous batching, asserting that every
+decoder layer's attention went through the kernels, and profiles one
+full-bucket join and decode step to show how much of their time the card is
+busy.  Any failed phase raises and the script exits non-zero.  The
+second-to-last line of output is a JSON object ``{"kernels": [...]}``
+(times, bounds, launches); the last line is ``{"ok": true, "device":
+{...}}``.  A full report is written to
+``build/chip_smoke.json`` (``.gitignore`` lists ``build/``).
+
+It exits non-zero, printing no result, where CUDA is not available.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and bf16 flop/s
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+
+# Kernel vs plain tolerances (|kernel - plain| <= tol + tol * |plain|).
+# bf16: inputs and outputs round to 8 bits of mantissa, as in
+# tests/test_kernels.py.  f32: both sides compute in float32 and differ only
+# in summation order (tiled online softmax and fused multiply-adds against
+# one softmax over the whole row), well inside the repo's f32 kernel bound.
+TOL = {"bfloat16": 2e-2, "float32": 3e-5}
+
+# (B, Sq, Sk, Hq, Hkv, hd, causal, window): tests/test_kernels.py FA_CASES,
+# then the minicpm-2b prefill shape and the other head dims the kernel takes
+FA_CASES = [
+    (2, 128, 128, 4, 2, 64, True, 0),
+    (1, 256, 256, 4, 1, 128, True, 0),
+    (2, 64, 192, 4, 4, 64, True, 0),
+    (1, 256, 256, 8, 2, 64, True, 64),
+    (1, 96, 96, 2, 2, 32, False, 0),
+    (2, 100, 228, 6, 3, 64, True, 100),
+    (2, 1, 128, 4, 2, 64, True, 0),
+    (1, 64, 64, 4, 2, 64, True, 128),
+    (2, 1, 96, 6, 3, 64, True, 32),
+    (1, 17, 17, 2, 1, 32, True, 8),
+    (8, 512, 512, 36, 36, 64, True, 0),
+    (2, 80, 80, 4, 4, 72, True, 0),
+    (1, 130, 130, 4, 2, 96, False, 0),
+    (2, 200, 200, 8, 2, 128, True, 64),
+]
+# (B, L, Hq, Hkv, hd, zero_row): tests/test_kernels.py DEC_CASES (block
+# sizes dropped), the minicpm-2b decode shape, other head dims, and a row
+# with valid_len = 0
+DEC_CASES = [
+    (2, 512, 8, 2, 64, False),
+    (1, 1000, 4, 4, 128, False),
+    (3, 256, 4, 1, 32, False),
+    (2, 300, 6, 3, 64, False),
+    (2, 33, 4, 2, 64, False),
+    (1, 64, 1, 1, 32, False),
+    (8, 544, 36, 36, 64, False),
+    (2, 100, 4, 4, 72, False),
+    (3, 200, 8, 2, 96, False),
+    (4, 128, 8, 8, 64, True),
+]
+
+
+def log(*a) -> None:
+    print(*a, flush=True)
+
+
+def device_profile(call, runs: int) -> dict:
+    """Run ``call`` ``runs`` times under ``torch.profiler`` and return, per
+    run, the host milliseconds (profiler on), the milliseconds the card was
+    busy (the union of every device-side event's interval), the five
+    kernels that took the most device time and the eight host ops that
+    took the most host time of their own."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        host_s = sum(call() for _ in range(runs))
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            spans.append((e.time_range.start, e.time_range.end))
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy_us, end = 0.0, None
+    for s, t in sorted(spans):
+        if end is None or s > end:
+            busy_us += t - s
+            end = t
+        elif t > end:
+            busy_us += t - end
+            end = t
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
+    return {"host_ms": host_s * 1e3 / runs,
+            "device_busy_ms": busy_us / 1e3 / runs,
+            "top": [(n, us / 1e3 / runs) for n, us in top],
+            "top_host": [(a.key, a.count // runs,
+                          a.self_cpu_time_total / 1e3 / runs)
+                         for a in host[:8]]}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import (decode_step_ragged, init_cache,
+                                    init_params, prefill)
+    from repro_torch.serving import ContinuousTorchExecutor, ServedModel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    report = {}
+
+    # -- 1. device ------------------------------------------------------------
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    log(f"[device] {name}; torch {torch.__version__} cuda "
+        f"{torch.version.cuda}; count {torch.cuda.device_count()}")
+    log(smi)
+    report["device"] = {"name": name, "nvidia_smi": smi}
+
+    # -- 2. build ---------------------------------------------------------------
+    build_s = _build.build()
+    log(f"[build] {len(_build.SOURCES)} kernels built in {build_s:.1f} s "
+        f"into {_build.BUILD_DIR}")
+    for src in _build.SOURCES:
+        regs = [ln.split("Used ")[1].split(",")[0]
+                for ln in _build.ptxas_log(src).read_text().splitlines()
+                if "Used " in ln]
+        spills = sum("0 bytes spill stores" not in ln
+                     for ln in _build.ptxas_log(src).read_text().splitlines()
+                     if "spill stores" in ln)
+        log(f"[build] {src}: {len(regs)} instantiations, ptxas: "
+            f"{sorted(set(regs))}, {spills} with spills")
+    report["build_s"] = build_s
+
+    # -- 3. kernel vs plain on the card ----------------------------------------
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def rnd(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def check(tag, out, ref, dtype_name):
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs()
+        tol = TOL[dtype_name]
+        bad = (err > tol + tol * ref.float().abs()).sum().item()
+        log(f"[parity] {tag} {dtype_name}: max_abs_err {err.max().item():.3g}"
+            f" (tol {tol})")
+        if bad:
+            raise AssertionError(f"{tag} {dtype_name}: {bad} elements "
+                                 f"outside tolerance")
+        return err.max().item()
+
+    errs = {"flash_attention": {}, "decode_attention": {}}
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        for c in FA_CASES:
+            B, Sq, Sk, Hq, Hkv, hd, causal, w = c
+            q, k, v = (rnd(B, Sq, Hq, hd, dtype=dtype),
+                       rnd(B, Sk, Hkv, hd, dtype=dtype),
+                       rnd(B, Sk, Hkv, hd, dtype=dtype))
+            errs["flash_attention"][(c, dn)] = check(
+                f"flash_attention {c}",
+                flash_attention(q, k, v, causal=causal, window=w),
+                flash_attention_plain(q, k, v, causal=causal, window=w), dn)
+        for c in DEC_CASES:
+            B, L, Hq, Hkv, hd, zero_row = c
+            q, k, v = (rnd(B, Hq, hd, dtype=dtype),
+                       rnd(B, L, Hkv, hd, dtype=dtype),
+                       rnd(B, L, Hkv, hd, dtype=dtype))
+            vlen = torch.randint(1, L + 1, (B,), generator=gen, device=dev,
+                                 dtype=torch.int32)
+            if zero_row:
+                vlen[0] = 0
+            out = decode_attention(q, k, v, vlen)
+            errs["decode_attention"][(c, dn)] = check(
+                f"decode_attention {c} valid_len {vlen.tolist()}", out,
+                decode_attention_plain(q, k, v, vlen), dn)
+            if zero_row and out[0].abs().max().item() != 0.0:
+                raise AssertionError("valid_len = 0 must give zeros")
+
+    # -- 4. kernel timing at the main path's shapes (bf16) ---------------------
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+
+    def time_ms(fn, runs=25, warmup=3):
+        """Median of ``runs`` CUDA-event timings, L2 flushed before each
+        (the serving path meets every layer's tensors cold)."""
+        for _ in range(warmup):
+            fn()
+        ts = []
+        for _ in range(runs):
+            flush.zero_()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            ts.append(a.elapsed_time(b))
+        return sorted(ts)[len(ts) // 2]
+
+    F = torch.nn.functional
+    bf = torch.bfloat16
+    B, S, H, hd = 8, 512, 36, 64
+    q, k, v = (rnd(B, S, H, hd, dtype=bf) for _ in range(3))
+    # q, k, v read once and o (q's shape) written once
+    fa_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    fa_flops = 4 * hd * B * H * S * (S + 1) // 2       # causal live pairs
+    fa = {"ms": time_ms(lambda: flash_attention(q, k, v, causal=True)),
+          "plain_ms": time_ms(lambda: flash_attention_plain(q, k, v,
+                                                            causal=True)),
+          "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+              q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+              is_causal=True))}
+    fa_b, fa_f = fa_bytes / HBM_BYTES_PER_S * 1e3, fa_flops / BF16_FLOPS * 1e3
+    fa.update(bound_ms=max(fa_b, fa_f),
+              bound_by="bytes" if fa_b >= fa_f else "operations")
+
+    L = 544
+    qd = rnd(B, H, hd, dtype=bf)
+    kd, vd = rnd(B, L, H, hd, dtype=bf), rnd(B, L, H, hd, dtype=bf)
+    vlen = torch.full((B,), L, dtype=torch.int32, device=dev)
+    live = int(vlen.sum().item())
+    dec_bytes = (2 * qd.numel() * qd.element_size()
+                 + 2 * live * H * hd * kd.element_size()
+                 + vlen.numel() * 4)
+    dec_flops = 4 * hd * H * live
+    dec = {"ms": time_ms(lambda: decode_attention(qd, kd, vd, vlen)),
+           "plain_ms": time_ms(lambda: decode_attention_plain(qd, kd, vd,
+                                                              vlen)),
+           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+               qd[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2)))}
+    d_b, d_f = dec_bytes / HBM_BYTES_PER_S * 1e3, dec_flops / BF16_FLOPS * 1e3
+    dec.update(bound_ms=max(d_b, d_f),
+               bound_by="bytes" if d_b >= d_f else "operations")
+    del flush, q, k, v, qd, kd, vd
+    for nm, t in (("flash_attention (8,512,512,36,36,64) causal", fa),
+                  ("decode_attention (8,544,36,36,64) valid_len 544", dec)):
+        log(f"[timing] {nm}: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms, bound "
+            f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}); {smi}")
+
+    # -- 5. model parity at full width: card (kernels) vs CPU (plain) ---------
+    cfg2 = get_config("minicpm-2b").with_(n_layers=2)
+    p_cpu = init_params(cfg2, seed=0, device="cpu")
+    p_gpu = {"embed": p_cpu["embed"].to(dev),
+             "final_norm": p_cpu["final_norm"].to(dev),
+             "groups": [{n: t.to(dev) for n, t in g.items()}
+                        for g in p_cpu["groups"]]}
+    rng = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg2.vocab_size, (2, 128), generator=rng)
+    caches = {"cpu": init_cache(cfg2, 2, 136, "cpu"),
+              "cuda": init_cache(cfg2, 2, 136, dev)}
+    params = {"cpu": p_cpu, "cuda": p_gpu}
+    lg = {d: prefill(cfg2, params[d], toks.to(d), caches[d])[0].float().cpu()
+          for d in ("cpu", "cuda")}
+    worst, agree, n_tok = 0.0, 0, 0
+    t = torch.tensor([128, 120], dtype=torch.int32)   # rows at other depths
+    for step in range(5):
+        if step:
+            lg = {d: decode_step_ragged(cfg2, params[d], caches[d],
+                                        tok.to(d), t.to(d))[0].float().cpu()
+                  for d in ("cpu", "cuda")}
+            t = t + 1
+        rel = ((lg["cuda"] - lg["cpu"]).abs().max()
+               / lg["cpu"].abs().max()).item()
+        worst = max(worst, rel)
+        tok = lg["cpu"].argmax(-1)                     # teacher-forced
+        agree += int((lg["cuda"].argmax(-1) == tok).sum())
+        n_tok += tok.numel()
+        if not torch.isfinite(lg["cuda"]).all():
+            raise AssertionError("non-finite logits on the card")
+    log(f"[model] minicpm-2b full width, 2 layers, prefill B=2 S=128 + 4 "
+        f"ragged steps: max |logit diff| / max |logit| = {worst:.3g} "
+        f"(bound 2e-2); greedy agreement {agree}/{n_tok}")
+    if worst > 2e-2:
+        raise AssertionError(f"card vs CPU logits differ by {worst:.3g}")
+    report["model_parity"] = {"max_rel_logit_diff": worst,
+                              "greedy_agree": [agree, n_tok]}
+    del p_cpu, p_gpu, params, caches
+    torch.cuda.empty_cache()
+
+    # -- 6. serve: full-width, full-depth minicpm-2b ----------------------------
+    cfg = get_config("minicpm-2b")
+    kops.reset_launch_counts()
+    rep = serve(cfg, n_requests=16, rps=None, prompt_len=512, gen_len=32,
+                max_batch=8, device=dev, seed=0)
+    total = kops.launch_counts()
+    bc = rep["batcher"]
+    n_buckets = len(rep["bucket_admit_ms"])
+    log(f"[serve] {rep['completed']}/{rep['n_requests']} requests, "
+        f"{bc['n_prefill_batches']} prefill batches, {bc['n_decode_ticks']}"
+        f" decode ticks, mean occupancy {rep['mean_decode_occupancy']:.2f}, "
+        f"rps {rep['rps']:.3f}")
+    log(f"[serve] latency p50 {rep['latency_p50_s'] * 1e3:.1f} ms, p99 "
+        f"{rep['latency_p99_s'] * 1e3:.1f} ms; time to first token p50 "
+        f"{rep['ttft_p50_s'] * 1e3:.1f} ms, p99 {rep['ttft_p99_s'] * 1e3:.1f}"
+        f" ms; token gap p50 {rep['token_gap_p50_s'] * 1e3:.2f} ms, p99 "
+        f"{rep['token_gap_p99_s'] * 1e3:.2f} ms; {rep['tokens_per_s']:.1f} "
+        f"tokens/s; max memory {rep['max_memory_allocated'] / 2**30:.2f} GiB"
+        f"; {smi}")
+    for b in rep["bucket_admit_ms"]:
+        log(f"[serve] bucket {b}: admit {rep['bucket_admit_ms'][b]:.2f} ms, "
+            f"step {rep['bucket_step_ms'][b]:.2f} ms")
+    log(f"[serve] launches in the serving loop {rep['kernel_launches']}; "
+        f"in all of serve() {total} (setup runs every bucket once, then "
+        f"calibration)")
+    if rep["completed"] != 16:
+        raise AssertionError(f"{rep['completed']}/16 requests completed")
+    for toks_i in rep["tokens"]:
+        if len(toks_i) != 33 or not all(0 <= x < cfg.vocab_padded
+                                        for x in toks_i):
+            raise AssertionError(f"bad generation {toks_i}")
+    if not rep["logits_finite"]:
+        raise AssertionError("non-finite logits while serving")
+    nl = cfg.n_layers
+    want_loop = {"attention": nl * bc["n_prefill_batches"],
+                 "decode_attention": nl * bc["n_decode_ticks"]}
+    ex = rep["executor"]
+    want_total = {"attention": nl * (ex["n_admits"] + n_buckets),
+                  "decode_attention": nl * (ex["n_steps"] + n_buckets)}
+    if rep["kernel_launches"] != want_loop or total != want_total:
+        raise AssertionError(f"kernel launches {rep['kernel_launches']} / "
+                             f"{total}, expected {want_loop} / {want_total}")
+    if rep["mean_decode_occupancy"] <= 2:
+        raise AssertionError("mean decode occupancy not above 2")
+    report["serve"] = rep
+
+    # -- 7. where the time of a full-bucket join and step goes -----------------
+    # On one executor: the median wall time of five calls without the
+    # profiler (each ends in a sync), then three calls under it; the idle
+    # share divides the second's device-busy time by the first.
+    ex = ContinuousTorchExecutor(
+        {"generate": ServedModel(cfg, prompt_len=512, gen_len=32)},
+        max_batch=8, device=dev, seed=0)
+    slots = list(range(8))
+    report["profile"] = {}
+    for what, call in (
+            ("join", lambda: ex._admit_seeded("generate", slots, slots)),
+            ("step", lambda: ex.step("generate", slots))):
+        wall_ms = sorted(call() for _ in range(5))[2] * 1e3
+        prof = device_profile(call, runs=3)
+        idle = (1 - prof["device_busy_ms"] / wall_ms
+                if prof["device_busy_ms"] else None)
+        prof.update(unprofiled_ms=wall_ms, idle_share=idle)
+        report["profile"][what] = prof
+        log(f"[profile] bucket-8 {what}: device busy "
+            f"{prof['device_busy_ms']:.2f} ms of {wall_ms:.2f} ms measured "
+            f"without the profiler (idle share "
+            f"{'not measured' if idle is None else f'{idle:.2f}'}); "
+            f"{prof['host_ms']:.2f} ms with it; top kernels (ms): "
+            + ", ".join(f"{n[:40]} {t:.2f}" for n, t in prof["top"]))
+        log(f"[profile] bucket-8 {what}: top host ops (calls, self ms): "
+            + ", ".join(f"{n[:40]} {c} {t:.2f}"
+                        for n, c, t in prof["top_host"]))
+    del ex
+    torch.cuda.empty_cache()
+
+    # -- result -------------------------------------------------------------------
+    main_case = {"flash_attention": ((8, 512, 512, 36, 36, 64, True, 0),
+                                     "bfloat16"),
+                 "decode_attention": ((8, 544, 36, 36, 64, False),
+                                      "bfloat16")}
+    kernels = []
+    for kname, tm, op, src, tpu in (
+            ("flash_attention", fa, "attention",
+             "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:98"),
+            ("decode_attention", dec, "decode_attention",
+             "src/repro_torch/csrc/decode_attention.cu",
+             "src/repro/kernels/decode_attention.py:69")):
+        kernels.append({"name": kname, "route": "cuda", "source": src,
+                        "replaces": tpu, "launches": total[op],
+                        "max_abs_err": errs[kname][main_case[kname]],
+                        "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+                        "bound_ms": tm["bound_ms"],
+                        "bound_by": tm["bound_by"],
+                        "library_ms": tm["library_ms"]})
+    report["kernels"] = kernels
+    report["seconds"] = time.perf_counter() - t_start
+    out = ROOT / "build"
+    out.mkdir(exist_ok=True)
+    (out / "chip_smoke.json").write_text(json.dumps(report, indent=1,
+                                                    default=str))
+    log(f"[done] {report['seconds']:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -11,3 +11,8 @@ try:
     import repro  # noqa: F401
 except ImportError:                                     # pragma: no cover
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips without one")
