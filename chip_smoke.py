@@ -7,12 +7,14 @@ Run from the root of a checkout on a machine with one NVIDIA H100::
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/csrc``, holds
 each against its plain PyTorch version on the card, times them at the main
-path's shapes, checks a full-width minicpm-2b (two layers) on the card
-against the same weights on the CPU, and serves 16 full-width, full-depth
-minicpm-2b requests through continuous batching, asserting that every
-decoder layer's attention went through the kernels, and profiles one
-full-bucket join and decode step to show how much of their time the card is
-busy.  Any failed phase raises and the script exits non-zero.  The
+paths' shapes, and then, for each of the two main paths (the dense decoder
+minicpm-2b with the two attention kernels, the Mamba2 decoder mamba2-370m
+with the SSD scan): checks the model at full width (two layers) on the card
+against the same weights on the CPU, serves 16 full-width, full-depth
+requests through continuous batching, asserting that every decoder layer's
+hot spot went through its kernel, and profiles one full-bucket join and
+decode step to show how much of their time the card is busy.  Any failed
+phase raises and the script exits non-zero.  The
 second-to-last line of output is a JSON object ``{"kernels": [...]}``
 (times, bounds, launches); the last line is ``{"ok": true, "device":
 {...}}``.  A full report is written to
@@ -40,6 +42,9 @@ BF16_FLOPS = 989e12
 # in summation order (tiled online softmax and fused multiply-adds against
 # one softmax over the whole row), well inside the repo's f32 kernel bound.
 TOL = {"bfloat16": 2e-2, "float32": 3e-5}
+# ssd_scan, (y, final state), as tests/test_kernels.py: its sums run over a
+# whole chunk and, through the carried state, the whole sequence
+SSD_TOL = {"bfloat16": (6e-2, 1e-2), "float32": (1e-4, 1e-4)}
 
 # (B, Sq, Sk, Hq, Hkv, hd, causal, window): tests/test_kernels.py FA_CASES,
 # then the minicpm-2b prefill shape and the other head dims the kernel takes
@@ -73,6 +78,19 @@ DEC_CASES = [
     (2, 100, 4, 4, 72, False),
     (3, 200, 8, 2, 96, False),
     (4, 128, 8, 8, 64, True),
+]
+# (B, S, H, P, N, chunk, init_state): tests/test_kernels.py SSD_CASES, its
+# init-state case, S no multiple of the chunk (130 is the model-parity
+# prompt below), and the mamba2-370m serving join
+SSD_CASES = [
+    (2, 128, 4, 64, 32, 64, False),
+    (1, 64, 2, 32, 16, 16, False),
+    (2, 256, 3, 64, 64, 64, False),
+    (1, 192, 2, 32, 128, 64, False),
+    (2, 128, 2, 32, 16, 64, True),
+    (2, 130, 32, 64, 128, 64, False),
+    (1, 100, 2, 32, 32, 16, True),
+    (8, 512, 32, 64, 128, 64, False),
 ]
 
 
@@ -127,6 +145,7 @@ def main() -> int:
                                                       decode_attention_plain)
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
     from repro_torch.launch.serve import serve
     from repro_torch.models import (decode_step_ragged, init_cache,
                                     init_params, prefill)
@@ -165,25 +184,27 @@ def main() -> int:
     report["build_s"] = build_s
 
     # -- 3. kernel vs plain on the card ----------------------------------------
+    F = torch.nn.functional
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
 
     def rnd(*shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    def check(tag, out, ref, dtype_name):
+    def check(tag, out, ref, dtype_name, tol=None):
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs()
-        tol = TOL[dtype_name]
+        tol = TOL[dtype_name] if tol is None else tol
         bad = (err > tol + tol * ref.float().abs()).sum().item()
         log(f"[parity] {tag} {dtype_name}: max_abs_err {err.max().item():.3g}"
-            f" (tol {tol})")
+            f" at max |plain| {ref.float().abs().max().item():.3g} (tol "
+            f"{tol} + {tol} * |plain|)")
         if bad:
             raise AssertionError(f"{tag} {dtype_name}: {bad} elements "
                                  f"outside tolerance")
         return err.max().item()
 
-    errs = {"flash_attention": {}, "decode_attention": {}}
+    errs = {"flash_attention": {}, "decode_attention": {}, "ssd_scan": {}}
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[1]
         for c in FA_CASES:
@@ -210,6 +231,22 @@ def main() -> int:
                 decode_attention_plain(q, k, v, vlen), dn)
             if zero_row and out[0].abs().max().item() != 0.0:
                 raise AssertionError("valid_len = 0 must give zeros")
+        for c in SSD_CASES:
+            B, S, H, P, N, Q, init = c
+            x = rnd(B, S, H, P, dtype=dtype)
+            dt = F.softplus(rnd(B, S, H, dtype=torch.float32)).to(dtype)
+            A = -torch.exp(0.5 * rnd(H, dtype=torch.float32))
+            Bm, Cm = rnd(B, S, N, dtype=dtype), rnd(B, S, N, dtype=dtype)
+            s0 = rnd(B, H, P, N, dtype=torch.float32) if init else None
+            y, st = ssd_scan(x, dt, A, Bm, Cm, chunk=Q, init_state=s0)
+            yp, sp = ssd_scan_plain(x, dt, A, Bm, Cm, chunk=Q,
+                                    init_state=s0)
+            ty, ts = SSD_TOL[dn]
+            errs["ssd_scan"][(c, dn)] = check(f"ssd_scan y {c}", y, yp, dn,
+                                              ty)
+            check(f"ssd_scan state {c}", st, sp, dn, ts)
+    # the last cases' tensors would otherwise count in the serves' peaks
+    del q, k, v, out, x, dt, Bm, Cm, s0, y, st, yp, sp
 
     # -- 4. kernel timing at the main path's shapes (bf16) ---------------------
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
@@ -231,7 +268,6 @@ def main() -> int:
             ts.append(a.elapsed_time(b))
         return sorted(ts)[len(ts) // 2]
 
-    F = torch.nn.functional
     bf = torch.bfloat16
     B, S, H, hd = 8, 512, 36, 64
     q, k, v = (rnd(B, S, H, hd, dtype=bf) for _ in range(3))
@@ -265,145 +301,200 @@ def main() -> int:
     d_b, d_f = dec_bytes / HBM_BYTES_PER_S * 1e3, dec_flops / BF16_FLOPS * 1e3
     dec.update(bound_ms=max(d_b, d_f),
                bound_by="bytes" if d_b >= d_f else "operations")
-    del flush, q, k, v, qd, kd, vd
+
+    # the mamba2-370m serving join: B 8, S 512, H 32, P 64, N 128, Q 64
+    B, S, H, P, N, Q = 8, 512, 32, 64, 128, 64
+    x = rnd(B, S, H, P, dtype=bf)
+    dt = F.softplus(rnd(B, S, H, dtype=torch.float32)).to(bf)
+    A = -torch.exp(0.5 * rnd(H, dtype=torch.float32))
+    Bm, Cm = rnd(B, S, N, dtype=bf), rnd(B, S, N, dtype=bf)
+    # x, dt, A, B, C read once; y (x's shape) and the f32 state written once
+    ssd_bytes = ((2 * x.numel() + dt.numel() + Bm.numel() + Cm.numel())
+                 * x.element_size() + A.numel() * 4 + B * H * P * N * 4)
+    # per (b, h, chunk): C.B^T, its product with x dt, C.state^T, the state
+    ssd_flops = (B * H * (S // Q)
+                 * (2 * Q * Q * N + 2 * Q * Q * P + 2 * Q * N * P
+                    + 2 * P * N * Q))
+    ssd = {"ms": time_ms(lambda: ssd_scan(x, dt, A, Bm, Cm, chunk=Q)),
+           "plain_ms": time_ms(lambda: ssd_scan_plain(x, dt, A, Bm, Cm,
+                                                      chunk=Q)),
+           "library_ms": None}          # no single PyTorch call computes it
+    s_b, s_f = ssd_bytes / HBM_BYTES_PER_S * 1e3, ssd_flops / BF16_FLOPS * 1e3
+    ssd.update(bound_ms=max(s_b, s_f),
+               bound_by="bytes" if s_b >= s_f else "operations")
+    del flush, q, k, v, qd, kd, vd, x, dt, Bm, Cm
     for nm, t in (("flash_attention (8,512,512,36,36,64) causal", fa),
-                  ("decode_attention (8,544,36,36,64) valid_len 544", dec)):
+                  ("decode_attention (8,544,36,36,64) valid_len 544", dec),
+                  ("ssd_scan (8,512,32,64) N 128 Q 64", ssd)):
+        lib = ("none" if t["library_ms"] is None
+               else f"{t['library_ms']:.4f} ms")
         log(f"[timing] {nm}: kernel {t['ms']:.4f} ms, plain "
-            f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms, bound "
+            f"{t['plain_ms']:.4f} ms, library {lib}, bound "
             f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}); {smi}")
 
-    # -- 5. model parity at full width: card (kernels) vs CPU (plain) ---------
-    cfg2 = get_config("minicpm-2b").with_(n_layers=2)
-    p_cpu = init_params(cfg2, seed=0, device="cpu")
-    p_gpu = {"embed": p_cpu["embed"].to(dev),
-             "final_norm": p_cpu["final_norm"].to(dev),
-             "groups": [{n: t.to(dev) for n, t in g.items()}
-                        for g in p_cpu["groups"]]}
-    rng = torch.Generator().manual_seed(1)
-    toks = torch.randint(0, cfg2.vocab_size, (2, 128), generator=rng)
-    caches = {"cpu": init_cache(cfg2, 2, 136, "cpu"),
-              "cuda": init_cache(cfg2, 2, 136, dev)}
-    params = {"cpu": p_cpu, "cuda": p_gpu}
-    lg = {d: prefill(cfg2, params[d], toks.to(d), caches[d])[0].float().cpu()
-          for d in ("cpu", "cuda")}
-    worst, agree, n_tok = 0.0, 0, 0
-    t = torch.tensor([128, 120], dtype=torch.int32)   # rows at other depths
-    for step in range(5):
-        if step:
-            lg = {d: decode_step_ragged(cfg2, params[d], caches[d],
-                                        tok.to(d), t.to(d))[0].float().cpu()
-                  for d in ("cpu", "cuda")}
-            t = t + 1
-        rel = ((lg["cuda"] - lg["cpu"]).abs().max()
-               / lg["cpu"].abs().max()).item()
-        worst = max(worst, rel)
-        tok = lg["cpu"].argmax(-1)                     # teacher-forced
-        agree += int((lg["cuda"].argmax(-1) == tok).sum())
-        n_tok += tok.numel()
-        if not torch.isfinite(lg["cuda"]).all():
-            raise AssertionError("non-finite logits on the card")
-    log(f"[model] minicpm-2b full width, 2 layers, prefill B=2 S=128 + 4 "
-        f"ragged steps: max |logit diff| / max |logit| = {worst:.3g} "
-        f"(bound 2e-2); greedy agreement {agree}/{n_tok}")
-    if worst > 2e-2:
-        raise AssertionError(f"card vs CPU logits differ by {worst:.3g}")
-    report["model_parity"] = {"max_rel_logit_diff": worst,
-                              "greedy_agree": [agree, n_tok]}
-    del p_cpu, p_gpu, params, caches
-    torch.cuda.empty_cache()
+    # The two main paths: the model, its parity prompt length (130 is no
+    # multiple of mamba2's chunk of 64, so the SSD padding runs on the
+    # card), and where each hot spot of its layers launches: once per layer
+    # in every join ("join") or in every decode step ("step").
+    paths = (("minicpm-2b", 128, {"attention": "join",
+                                  "decode_attention": "step"}),
+             ("mamba2-370m", 130, {"ssd": "join"}))
+    report["model_parity"], report["serve"], report["profile"] = {}, {}, {}
+    path_launches = {}
+    for model, S_par, where in paths:
+        # -- 5. model parity at full width: card (kernels) vs CPU (plain) -----
+        cfg2 = get_config(model).with_(n_layers=2)
+        p_cpu = init_params(cfg2, seed=0, device="cpu")
+        p_gpu = {"embed": p_cpu["embed"].to(dev),
+                 "final_norm": p_cpu["final_norm"].to(dev),
+                 "groups": [{n: t.to(dev) for n, t in g.items()}
+                            for g in p_cpu["groups"]]}
+        rng = torch.Generator().manual_seed(1)
+        toks = torch.randint(0, cfg2.vocab_size, (2, S_par), generator=rng)
+        caches = {"cpu": init_cache(cfg2, 2, S_par + 8, "cpu"),
+                  "cuda": init_cache(cfg2, 2, S_par + 8, dev)}
+        params = {"cpu": p_cpu, "cuda": p_gpu}
+        lg = {d: prefill(cfg2, params[d], toks.to(d),
+                         caches[d])[0].float().cpu()
+              for d in ("cpu", "cuda")}
+        worst, agree, n_tok = 0.0, 0, 0
+        # rows at other depths
+        t = torch.tensor([S_par, S_par - 8], dtype=torch.int32)
+        for step in range(5):
+            if step:
+                lg = {d: decode_step_ragged(cfg2, params[d], caches[d],
+                                            tok.to(d),
+                                            t.to(d))[0].float().cpu()
+                      for d in ("cpu", "cuda")}
+                t = t + 1
+            rel = ((lg["cuda"] - lg["cpu"]).abs().max()
+                   / lg["cpu"].abs().max()).item()
+            worst = max(worst, rel)
+            tok = lg["cpu"].argmax(-1)                     # teacher-forced
+            agree += int((lg["cuda"].argmax(-1) == tok).sum())
+            n_tok += tok.numel()
+            if not torch.isfinite(lg["cuda"]).all():
+                raise AssertionError(f"{model}: non-finite logits on the "
+                                     f"card")
+        log(f"[model] {model} full width, 2 layers, prefill B=2 S={S_par} + "
+            f"4 ragged steps: max |logit diff| / max |logit| = {worst:.3g} "
+            f"(bound 2e-2); greedy agreement {agree}/{n_tok}")
+        if worst > 2e-2:
+            raise AssertionError(f"{model}: card vs CPU logits differ by "
+                                 f"{worst:.3g}")
+        report["model_parity"][model] = {"max_rel_logit_diff": worst,
+                                         "greedy_agree": [agree, n_tok]}
+        del p_cpu, p_gpu, params, caches
+        torch.cuda.empty_cache()
 
-    # -- 6. serve: full-width, full-depth minicpm-2b ----------------------------
-    cfg = get_config("minicpm-2b")
-    kops.reset_launch_counts()
-    rep = serve(cfg, n_requests=16, rps=None, prompt_len=512, gen_len=32,
-                max_batch=8, device=dev, seed=0)
-    total = kops.launch_counts()
-    bc = rep["batcher"]
-    n_buckets = len(rep["bucket_admit_ms"])
-    log(f"[serve] {rep['completed']}/{rep['n_requests']} requests, "
-        f"{bc['n_prefill_batches']} prefill batches, {bc['n_decode_ticks']}"
-        f" decode ticks, mean occupancy {rep['mean_decode_occupancy']:.2f}, "
-        f"rps {rep['rps']:.3f}")
-    log(f"[serve] latency p50 {rep['latency_p50_s'] * 1e3:.1f} ms, p99 "
-        f"{rep['latency_p99_s'] * 1e3:.1f} ms; time to first token p50 "
-        f"{rep['ttft_p50_s'] * 1e3:.1f} ms, p99 {rep['ttft_p99_s'] * 1e3:.1f}"
-        f" ms; token gap p50 {rep['token_gap_p50_s'] * 1e3:.2f} ms, p99 "
-        f"{rep['token_gap_p99_s'] * 1e3:.2f} ms; {rep['tokens_per_s']:.1f} "
-        f"tokens/s; max memory {rep['max_memory_allocated'] / 2**30:.2f} GiB"
-        f"; {smi}")
-    for b in rep["bucket_admit_ms"]:
-        log(f"[serve] bucket {b}: admit {rep['bucket_admit_ms'][b]:.2f} ms, "
-            f"step {rep['bucket_step_ms'][b]:.2f} ms")
-    log(f"[serve] launches in the serving loop {rep['kernel_launches']}; "
-        f"in all of serve() {total} (setup runs every bucket once, then "
-        f"calibration)")
-    if rep["completed"] != 16:
-        raise AssertionError(f"{rep['completed']}/16 requests completed")
-    for toks_i in rep["tokens"]:
-        if len(toks_i) != 33 or not all(0 <= x < cfg.vocab_padded
-                                        for x in toks_i):
-            raise AssertionError(f"bad generation {toks_i}")
-    if not rep["logits_finite"]:
-        raise AssertionError("non-finite logits while serving")
-    nl = cfg.n_layers
-    want_loop = {"attention": nl * bc["n_prefill_batches"],
-                 "decode_attention": nl * bc["n_decode_ticks"]}
-    ex = rep["executor"]
-    want_total = {"attention": nl * (ex["n_admits"] + n_buckets),
-                  "decode_attention": nl * (ex["n_steps"] + n_buckets)}
-    if rep["kernel_launches"] != want_loop or total != want_total:
-        raise AssertionError(f"kernel launches {rep['kernel_launches']} / "
-                             f"{total}, expected {want_loop} / {want_total}")
-    if rep["mean_decode_occupancy"] <= 2:
-        raise AssertionError("mean decode occupancy not above 2")
-    report["serve"] = rep
+        # -- 6. serve: full-width, full-depth -----------------------------------
+        cfg = get_config(model)
+        kops.reset_launch_counts()
+        rep = serve(cfg, n_requests=16, rps=None, prompt_len=512,
+                    gen_len=32, max_batch=8, device=dev, seed=0)
+        total = kops.launch_counts()
+        path_launches[model] = total
+        bc = rep["batcher"]
+        n_buckets = len(rep["bucket_admit_ms"])
+        log(f"[serve] {model}: {rep['completed']}/{rep['n_requests']} "
+            f"requests, {bc['n_prefill_batches']} prefill batches, "
+            f"{bc['n_decode_ticks']} decode ticks, mean occupancy "
+            f"{rep['mean_decode_occupancy']:.2f}, rps {rep['rps']:.3f}")
+        log(f"[serve] {model}: latency p50 {rep['latency_p50_s'] * 1e3:.1f} "
+            f"ms, p99 {rep['latency_p99_s'] * 1e3:.1f} ms; time to first "
+            f"token p50 {rep['ttft_p50_s'] * 1e3:.1f} ms, p99 "
+            f"{rep['ttft_p99_s'] * 1e3:.1f} ms; token gap p50 "
+            f"{rep['token_gap_p50_s'] * 1e3:.2f} ms, p99 "
+            f"{rep['token_gap_p99_s'] * 1e3:.2f} ms; "
+            f"{rep['tokens_per_s']:.1f} tokens/s; max memory "
+            f"{rep['max_memory_allocated'] / 2**30:.2f} GiB; {smi}")
+        for b in rep["bucket_admit_ms"]:
+            log(f"[serve] {model} bucket {b}: admit "
+                f"{rep['bucket_admit_ms'][b]:.2f} ms, step "
+                f"{rep['bucket_step_ms'][b]:.2f} ms")
+        log(f"[serve] {model}: launches in the serving loop "
+            f"{rep['kernel_launches']}; in all of serve() {total} (setup "
+            f"runs every bucket once, then calibration)")
+        if rep["completed"] != 16:
+            raise AssertionError(f"{model}: {rep['completed']}/16 requests "
+                                 f"completed")
+        for toks_i in rep["tokens"]:
+            if len(toks_i) != 33 or not all(0 <= x < cfg.vocab_padded
+                                            for x in toks_i):
+                raise AssertionError(f"{model}: bad generation {toks_i}")
+        if not rep["logits_finite"]:
+            raise AssertionError(f"{model}: non-finite logits while serving")
+        nl = cfg.n_layers
+        ex = rep["executor"]
+        loop_runs = {"join": bc["n_prefill_batches"],
+                     "step": bc["n_decode_ticks"]}
+        all_runs = {"join": ex["n_admits"] + n_buckets,
+                    "step": ex["n_steps"] + n_buckets}
+        want_loop = {op: nl * loop_runs[where[op]] if op in where else 0
+                     for op in kops.KERNEL_TABLE}
+        want_total = {op: nl * all_runs[where[op]] if op in where else 0
+                      for op in kops.KERNEL_TABLE}
+        if rep["kernel_launches"] != want_loop or total != want_total:
+            raise AssertionError(f"{model}: kernel launches "
+                                 f"{rep['kernel_launches']} / {total}, "
+                                 f"expected {want_loop} / {want_total}")
+        if rep["mean_decode_occupancy"] <= 2:
+            raise AssertionError(f"{model}: mean decode occupancy not "
+                                 f"above 2")
+        report["serve"][model] = rep
 
-    # -- 7. where the time of a full-bucket join and step goes -----------------
-    # On one executor: the median wall time of five calls without the
-    # profiler (each ends in a sync), then three calls under it; the idle
-    # share divides the second's device-busy time by the first.
-    ex = ContinuousTorchExecutor(
-        {"generate": ServedModel(cfg, prompt_len=512, gen_len=32)},
-        max_batch=8, device=dev, seed=0)
-    slots = list(range(8))
-    report["profile"] = {}
-    for what, call in (
-            ("join", lambda: ex._admit_seeded("generate", slots, slots)),
-            ("step", lambda: ex.step("generate", slots))):
-        wall_ms = sorted(call() for _ in range(5))[2] * 1e3
-        prof = device_profile(call, runs=3)
-        idle = (1 - prof["device_busy_ms"] / wall_ms
-                if prof["device_busy_ms"] else None)
-        prof.update(unprofiled_ms=wall_ms, idle_share=idle)
-        report["profile"][what] = prof
-        log(f"[profile] bucket-8 {what}: device busy "
-            f"{prof['device_busy_ms']:.2f} ms of {wall_ms:.2f} ms measured "
-            f"without the profiler (idle share "
-            f"{'not measured' if idle is None else f'{idle:.2f}'}); "
-            f"{prof['host_ms']:.2f} ms with it; top kernels (ms): "
-            + ", ".join(f"{n[:40]} {t:.2f}" for n, t in prof["top"]))
-        log(f"[profile] bucket-8 {what}: top host ops (calls, self ms): "
-            + ", ".join(f"{n[:40]} {c} {t:.2f}"
-                        for n, c, t in prof["top_host"]))
-    del ex
-    torch.cuda.empty_cache()
+        # -- 7. where the time of a full-bucket join and step goes -------------
+        # On one executor: the median wall time of five calls without the
+        # profiler (each ends in a sync), then three calls under it; the
+        # idle share divides the second's device-busy time by the first.
+        ex = ContinuousTorchExecutor(
+            {"generate": ServedModel(cfg, prompt_len=512, gen_len=32)},
+            max_batch=8, device=dev, seed=0)
+        slots = list(range(8))
+        report["profile"][model] = {}
+        for what, call in (
+                ("join", lambda: ex._admit_seeded("generate", slots, slots)),
+                ("step", lambda: ex.step("generate", slots))):
+            wall_ms = sorted(call() for _ in range(5))[2] * 1e3
+            prof = device_profile(call, runs=3)
+            idle = (1 - prof["device_busy_ms"] / wall_ms
+                    if prof["device_busy_ms"] else None)
+            prof.update(unprofiled_ms=wall_ms, idle_share=idle)
+            report["profile"][model][what] = prof
+            log(f"[profile] {model} bucket-8 {what}: device busy "
+                f"{prof['device_busy_ms']:.2f} ms of {wall_ms:.2f} ms "
+                f"measured without the profiler (idle share "
+                f"{'not measured' if idle is None else f'{idle:.2f}'}); "
+                f"{prof['host_ms']:.2f} ms with it; top kernels (ms): "
+                + ", ".join(f"{n[:40]} {t:.2f}" for n, t in prof["top"]))
+            log(f"[profile] {model} bucket-8 {what}: top host ops (calls, "
+                f"self ms): "
+                + ", ".join(f"{n[:40]} {c} {t:.2f}"
+                            for n, c, t in prof["top_host"]))
+        del ex
+        torch.cuda.empty_cache()
 
     # -- result -------------------------------------------------------------------
-    main_case = {"flash_attention": ((8, 512, 512, 36, 36, 64, True, 0),
-                                     "bfloat16"),
-                 "decode_attention": ((8, 544, 36, 36, 64, False),
-                                      "bfloat16")}
+    # each kernel: its launches over all of serve() on its own path, and the
+    # error and times at its serving shape
     kernels = []
-    for kname, tm, op, src, tpu in (
-            ("flash_attention", fa, "attention",
+    for kname, tm, op, model, case, src, tpu in (
+            ("flash_attention", fa, "attention", "minicpm-2b",
+             (8, 512, 512, 36, 36, 64, True, 0),
              "src/repro_torch/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention.py:98"),
-            ("decode_attention", dec, "decode_attention",
+            ("decode_attention", dec, "decode_attention", "minicpm-2b",
+             (8, 544, 36, 36, 64, False),
              "src/repro_torch/csrc/decode_attention.cu",
-             "src/repro/kernels/decode_attention.py:69")):
+             "src/repro/kernels/decode_attention.py:69"),
+            ("ssd_scan", ssd, "ssd", "mamba2-370m",
+             (8, 512, 32, 64, 128, 64, False),
+             "src/repro_torch/csrc/ssd_scan.cu",
+             "src/repro/kernels/ssd_scan.py:77")):
         kernels.append({"name": kname, "route": "cuda", "source": src,
-                        "replaces": tpu, "launches": total[op],
-                        "max_abs_err": errs[kname][main_case[kname]],
+                        "replaces": tpu,
+                        "launches": path_launches[model][op],
+                        "max_abs_err": errs[kname][(case, "bfloat16")],
                         "ms": tm["ms"], "plain_ms": tm["plain_ms"],
                         "bound_ms": tm["bound_ms"],
                         "bound_by": tm["bound_by"],

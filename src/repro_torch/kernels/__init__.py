@@ -8,5 +8,6 @@ models call.  Kernels are built with ``nvcc`` at first use (``_build.py``).
 from . import ops, ref
 from .decode_attention import decode_attention
 from .flash_attention import flash_attention
+from .ssd_scan import ssd_scan
 
-__all__ = ["ops", "ref", "flash_attention", "decode_attention"]
+__all__ = ["ops", "ref", "flash_attention", "decode_attention", "ssd_scan"]

@@ -1,23 +1,30 @@
-"""Decoder model: dense attention layer groups, in plain PyTorch.
+"""Decoder model: dense attention and Mamba2 layer groups, in plain PyTorch.
 
-Port of ``src/repro/models/transformer.py:44-550`` for attention groups.
+Port of ``src/repro/models/transformer.py:44-550`` for attention and Mamba
+groups.
 Parameters are a dict with the JAX package's key names and layout: each
 group's leaves carry a leading layer axis when the group has more than one
 layer, and none when it has one.  The JAX ``lax.scan`` over that axis is a
-loop here.  KV caches always carry the leading layer axis.
+loop here.  Caches always carry the leading layer axis: K/V per attention
+group, conv inputs and SSM state per Mamba group.
 
 Differences from the JAX package, all deliberate:
 
-* The KV cache is updated in place (``prefill`` writes the prompt's K/V,
-  ``decode_step*`` the new token's) and returned; the serving executor
-  gathers a private copy of its slab rows before each step.
+* Caches are updated in place (``prefill`` writes the prompt's K/V, conv
+  inputs and SSM state, ``decode_step*`` the new token's) and returned; the
+  serving executor gathers a private copy of its slab rows before each
+  step.
+* ``prefill`` runs a Mamba group from a zero conv prefix and a null initial
+  state, where the JAX package passes a zeroed cache: the same numbers
+  without reading zeros.
 * ``decode_step`` is ``decode_step_ragged`` at a uniform position, so the
   two agree exactly by construction.
-* Every attention call goes through ``kernels.ops`` (the JAX package's
-  kernel path); sliding-window decode keeps the masked ``gqa_attention`` on
-  every device, as in JAX, because a ring cache is not a prefix.
+* Every attention and SSD-scan call goes through ``kernels.ops`` (the JAX
+  package's kernel path); sliding-window decode keeps the masked
+  ``gqa_attention`` on every device, as in JAX, because a ring cache is not
+  a prefix.
 
-Mamba2, mixture of experts, cross-attention, zamba2's shared attention, the
+Mixture of experts, cross-attention, zamba2's shared attention, the
 modality frontends and the encoder are not ported yet and raise
 ``NotImplementedError`` naming their ROADMAP item.
 
@@ -32,7 +39,7 @@ Entry points:
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Iterator, List, Tuple, Union
+from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
 
 import torch
 
@@ -40,20 +47,16 @@ from ..device import DeviceLike, resolve_device
 from ..kernels import ops as kernel_ops
 from .config import LayerGroup, ModelConfig
 from .layers import (apply_rope, attention_block, gelu_mlp, gqa_attention,
-                     rms_norm, swiglu)
+                     mamba2_block, rms_norm, swiglu)
 
 Params = Dict[str, Any]
 f32 = torch.float32
 
 _ZOO = "ROADMAP Queue 1, 'Rest of the model zoo'"
-_MAMBA = "ROADMAP Queue 1, 'Mamba2 slice', and Queue 2, ssd_scan"
 
 
 def _check_supported(cfg: ModelConfig) -> None:
     for g in cfg.groups():
-        if g.kind == "mamba":
-            raise NotImplementedError(
-                f"{cfg.name}: Mamba2 layers are not ported yet ({_MAMBA})")
         if g.kind == "shared_attn":
             raise NotImplementedError(
                 f"{cfg.name}: zamba2's shared attention is not ported yet "
@@ -104,15 +107,38 @@ def _attn_layer_shapes(cfg: ModelConfig, g: LayerGroup) -> Dict[str, tuple]:
     return s
 
 
+def _mamba_layer_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    d, di, N = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    H = cfg.n_ssm_heads
+    dxbc = di + 2 * N
+    return {
+        "ln": (d,),
+        "in_proj": (d, 2 * di + 2 * N + H),
+        "conv_w": (cfg.ssm_conv, dxbc), "conv_b": (dxbc,),
+        "dt_bias": (H,), "A_log": (H,), "D": (H,),
+        "norm_w": (di,), "out_proj": (di, d),
+    }
+
+
 def _init_layer(gen, shapes: Dict[str, tuple], count: int, dtype,
                 device) -> Params:
     """Walk names in sorted order (as the JAX package does); a group of one
-    layer is unstacked; norms start at zero (``rms_norm`` scales by 1+w)."""
+    layer is unstacked; norms start at zero (``rms_norm`` scales by 1+w).
+    The Mamba leaves ``A_log`` (log of 1..16 over the heads), ``dt_bias``,
+    ``conv_b`` (zeros) and ``D`` (ones) are float32 whatever ``dtype``."""
     out = {}
     for name, shp in sorted(shapes.items()):
         full = (count,) + shp if count > 1 else shp
         if name.startswith(("ln", "norm")):
             out[name] = torch.zeros(full, dtype=dtype, device=device)
+        elif name == "A_log":
+            base = torch.log(torch.linspace(1.0, 16.0, shp[-1], dtype=f32,
+                                            device=device))
+            out[name] = base.expand(full).clone()
+        elif name in ("dt_bias", "conv_b"):
+            out[name] = torch.zeros(full, dtype=f32, device=device)
+        elif name == "D":
+            out[name] = torch.ones(full, dtype=f32, device=device)
         else:
             fan_in = shp[-2] if len(shp) >= 2 else shp[-1]
             out[name] = _dense_init(gen, full, dtype, device,
@@ -141,8 +167,10 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     if not cfg.tie_embeddings:
         params["lm_head"] = _dense_init(
             gen, (cfg.d_model, cfg.vocab_padded), dtype, dev)
-    params["groups"] = [_init_layer(gen, _attn_layer_shapes(cfg, g), g.count,
-                                    dtype, dev) for g in cfg.groups()]
+    params["groups"] = [
+        _init_layer(gen, _mamba_layer_shapes(cfg) if g.kind == "mamba"
+                    else _attn_layer_shapes(cfg, g), g.count, dtype, dev)
+        for g in cfg.groups()]
     return params
 
 
@@ -153,11 +181,13 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 
 def _layer_params(gp: Params) -> Iterator[Params]:
     """The group's layers in order: slices of the stacked leaves, or the
-    group itself when it holds one unstacked layer."""
-    if gp["ln1"].dim() == 1:
+    group itself when it holds one unstacked layer (keyed on the first
+    norm: ``ln1`` of an attention layer, ``ln`` of a Mamba layer)."""
+    ln = gp["ln1"] if "ln1" in gp else gp["ln"]
+    if ln.dim() == 1:
         yield gp
         return
-    for i in range(gp["ln1"].shape[0]):
+    for i in range(ln.shape[0]):
         yield {name: t[i] for name, t in gp.items()}
 
 
@@ -185,6 +215,37 @@ def _attn_group_fwd(cfg: ModelConfig, g: LayerGroup, gp: Params,
         h = h + _ffn(cfg, lp, rms_norm(h, lp["ln2"], cfg.norm_eps))
         kv.append((k, v))
     return h, kv
+
+
+def _mamba_group_fwd(cfg: ModelConfig, gp: Params, x: torch.Tensor,
+                     ce: Optional[Dict[str, torch.Tensor]] = None,
+                     ) -> Tuple[torch.Tensor,
+                                List[Dict[str, torch.Tensor]]]:
+    """Run a Mamba group over x (B,S,d): from a zero conv prefix and state
+    without ``ce``, else from layer i's ``ce["conv"][i]`` and
+    ``ce["state"][i]``.  Returns the hidden state and each layer's new
+    {'conv', 'state'}."""
+    caches = []
+    h = x
+    for i, lp in enumerate(_layer_params(gp)):
+        lc = None if ce is None else {k: t[i] for k, t in ce.items()}
+        y, nc = mamba2_block(
+            rms_norm(h, lp["ln"], cfg.norm_eps), lp,
+            n_heads=cfg.n_ssm_heads, head_dim=cfg.ssm_head_dim,
+            d_state=cfg.ssm_state, d_conv=cfg.ssm_conv, chunk=cfg.ssm_chunk,
+            cache=lc)
+        h = h + y
+        caches.append(nc)
+    return h, caches
+
+
+def _store(ce: Dict[str, torch.Tensor],
+           caches: List[Dict[str, torch.Tensor]]) -> None:
+    """Write each layer's new Mamba cache into the group's entry, in
+    place."""
+    for i, nc in enumerate(caches):
+        for k, t in nc.items():
+            ce[k][i].copy_(t)
 
 
 # ---------------------------------------------------------------------------
@@ -226,7 +287,10 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     h = _embed(cfg, params, tokens)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
     for g, gp in zip(cfg.groups(), params["groups"]):
-        h, _ = _attn_group_fwd(cfg, g, gp, h, positions)
+        if g.kind == "mamba":
+            h, _ = _mamba_group_fwd(cfg, gp, h)
+        else:
+            h, _ = _attn_group_fwd(cfg, g, gp, h, positions)
     return _unembed(cfg, params, h), torch.zeros((), dtype=f32,
                                                  device=h.device)
 
@@ -242,13 +306,24 @@ def _attn_cache_len(g: LayerGroup, max_len: int) -> int:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: DeviceLike = None) -> Dict[str, Any]:
-    """Zeroed K/V caches, (layers, batch, W, Hkv, hd) per group; W is
-    ``max_len`` for full attention and ``min(window, max_len)`` for a
-    sliding-window ring."""
+    """Zeroed caches.  Attention groups: K/V, (layers, batch, W, Hkv, hd);
+    W is ``max_len`` for full attention and ``min(window, max_len)`` for a
+    sliding-window ring.  Mamba groups: the conv inputs, (layers, batch,
+    conv - 1, d_inner + 2N) in the compute dtype, and the SSM state,
+    (layers, batch, H, P, N) in float32."""
     dev = resolve_device(device)
     _check_supported(cfg)
     entries = []
     for g in cfg.groups():
+        if g.kind == "mamba":
+            entries.append({
+                "conv": torch.zeros((g.count, batch, cfg.ssm_conv - 1,
+                                     cfg.d_inner + 2 * cfg.ssm_state),
+                                    dtype=cfg.dtype(), device=dev),
+                "state": torch.zeros((g.count, batch, cfg.n_ssm_heads,
+                                      cfg.ssm_head_dim, cfg.ssm_state),
+                                     dtype=f32, device=dev)})
+            continue
         shape = (g.count, batch, _attn_cache_len(g, max_len),
                  cfg.n_kv_heads, cfg.hd)
         entries.append({"k": torch.zeros(shape, dtype=cfg.dtype(),
@@ -265,14 +340,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             cache: Dict[str, Any]) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Run the prompt (B, S), write its K/V into ``cache`` in place and
-    return (last-position logits (B, 1, V), cache)."""
+    """Run the prompt (B, S), write its K/V (attention) and conv inputs and
+    state (Mamba) into ``cache`` in place and return (last-position logits
+    (B, 1, V), cache)."""
     _check_supported(cfg)
     _check_no_frontend(cfg)
     h = _embed(cfg, params, tokens)
     S = h.shape[1]
     positions = torch.arange(S, device=h.device)[None, :]
     for g, gp, ce in zip(cfg.groups(), params["groups"], cache["layers"]):
+        if g.kind == "mamba":
+            h, caches = _mamba_group_fwd(cfg, gp, h)
+            _store(ce, caches)
+            continue
         h, kv = _attn_group_fwd(cfg, g, gp, h, positions)
         W = ce["k"].shape[2]
         for i, (k, v) in enumerate(kv):
@@ -315,13 +395,18 @@ def decode_step_ragged(cfg: ModelConfig, params: Params,
 
     The continuous-batching decode step: every row advances its own
     sequence (per-row RoPE angle, cache slot and ``valid_len``), so requests
-    at different depths share one step.  Returns (logits (B,1,V), cache
-    updated in place)."""
+    at different depths share one step; a Mamba row's state is its own
+    whatever its depth.  Returns (logits (B,1,V), cache updated in
+    place)."""
     _check_supported(cfg)
     t = t.to(torch.int32)
     h = _embed(cfg, params, token)
     for g, gp, ce in zip(cfg.groups(), params["groups"], cache["layers"]):
-        h = _attn_group_decode(cfg, g, gp, ce, h, t)
+        if g.kind == "mamba":
+            h, caches = _mamba_group_fwd(cfg, gp, h, ce)
+            _store(ce, caches)
+        else:
+            h = _attn_group_decode(cfg, g, gp, ce, h, t)
     return _unembed(cfg, params, h), cache
 
 

@@ -15,10 +15,11 @@ from repro_torch.configs import ARCH_IDS, INPUT_SHAPES, get_config  # noqa: E402
 from repro_torch.models import init_params  # noqa: E402
 
 CASES = [(a, r) for a in J_ARCH_IDS for r in (False, True)]
-# architectures whose layers the port runs so far (dense attention; the
-# VLM's frontend stub is refused at forward time, its weights are dense)
+# architectures whose layers the port runs so far (dense attention and
+# Mamba2; the VLM's frontend stub is refused at forward time, its weights
+# are dense)
 PORTED = ("minicpm-2b", "phi3-mini-3.8b", "gemma3-1b", "minitron-8b",
-          "phi-3-vision-4.2b")
+          "phi-3-vision-4.2b", "mamba2-370m")
 
 
 def _ids(c):

@@ -15,11 +15,14 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_attention_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain)
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain  # noqa: E402
 from repro_torch.models import (decode_step_ragged, init_cache,  # noqa: E402
                                 init_params, prefill)
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.bfloat16: 2e-2, torch.float32: 3e-5}   # as chip_smoke.py
+# ssd_scan, as tests/test_kernels.py: (y, state) per dtype
+SSD_TOL = {torch.bfloat16: (6e-2, 1e-2), torch.float32: (1e-4, 1e-4)}
 
 
 @pytest.fixture
@@ -73,6 +76,37 @@ def test_decode_attention_kernel_matches_plain(cuda, case, dtype):
     _close(out, decode_attention_plain(q, k, v, vlen), dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", [(2, 128, 4, 64, 32, 64, False),
+                                  (1, 64, 2, 32, 16, 16, False),
+                                  (2, 128, 2, 32, 16, 64, True),
+                                  (1, 100, 2, 32, 16, 64, True),
+                                  (2, 130, 8, 64, 128, 64, False),
+                                  (1, 40, 3, 32, 64, 32, True)], ids=str)
+def test_ssd_scan_kernel_matches_plain(cuda, case, dtype):
+    """(B, S, H, P, N, chunk, init_state); S 100, 130 and 40 are no
+    multiple of the chunk."""
+    B, S, H, P, N, Q, init = case
+    x = torch.randn(B, S, H, P, generator=cuda, device="cuda").to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, S, H, generator=cuda, device="cuda")).to(dtype)
+    A = -torch.exp(0.5 * torch.randn(H, generator=cuda, device="cuda"))
+    Bm = torch.randn(B, S, N, generator=cuda, device="cuda").to(dtype)
+    Cm = torch.randn(B, S, N, generator=cuda, device="cuda").to(dtype)
+    s0 = (torch.randn(B, H, P, N, generator=cuda, device="cuda")
+          if init else None)
+    n = ssd_scan.launches
+    y, st = ssd_scan(x, dt, A, Bm, Cm, chunk=Q, init_state=s0)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == n + 1
+    assert y.shape == x.shape and y.dtype == dtype
+    assert st.shape == (B, H, P, N) and st.dtype == torch.float32
+    yp, sp = ssd_scan_plain(x, dt, A, Bm, Cm, chunk=Q, init_state=s0)
+    ty, ts = SSD_TOL[dtype]
+    torch.testing.assert_close(y.float(), yp.float(), rtol=ty, atol=ty)
+    torch.testing.assert_close(st, sp, rtol=ts, atol=ts)
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     q = torch.zeros(1, 8, 2, 80, device="cuda")
     with pytest.raises(ValueError, match="head dims"):
@@ -83,6 +117,17 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     q = torch.zeros(1, 2, 8, 64, device="cuda").transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(q, q, q)
+    x = torch.zeros(1, 64, 2, 32, device="cuda")
+    dt, A = torch.zeros(1, 64, 2, device="cuda"), torch.zeros(2,
+                                                              device="cuda")
+    Bm = torch.zeros(1, 64, 16, device="cuda")
+    with pytest.raises(ValueError, match="chunks"):
+        ssd_scan(x, dt, A, Bm, Bm, chunk=128)
+    with pytest.raises(ValueError, match="takes"):
+        ssd_scan(x.half(), dt.half(), A, Bm.half(), Bm.half(), chunk=64)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan(x, dt, A, Bm.transpose(1, 2).contiguous().transpose(1, 2),
+                 Bm, chunk=64)
 
 
 def test_decoder_on_the_card_matches_the_cpu(cuda):
@@ -109,3 +154,30 @@ def test_decoder_on_the_card_matches_the_cpu(cuda):
     assert after["attention"] - before["attention"] == cfg.n_layers
     assert after["decode_attention"] - before["decode_attention"] \
         == cfg.n_layers
+
+
+def test_mamba_decoder_on_the_card_matches_the_cpu(cuda):
+    """mamba2-370m reduced in float32: a prefill whose S (20) is no
+    multiple of the chunk (16), then a ragged decode step."""
+    cfg = get_config("mamba2-370m", reduced=True).with_(
+        compute_dtype="float32", param_dtype="float32")
+    p_cpu = init_params(cfg, seed=0, device="cpu")
+    p_gpu = {"embed": p_cpu["embed"].cuda(),
+             "final_norm": p_cpu["final_norm"].cuda(),
+             "groups": [{n: t.cuda() for n, t in g.items()}
+                        for g in p_cpu["groups"]]}
+    toks = torch.randint(0, cfg.vocab_size, (2, 20),
+                         generator=torch.Generator().manual_seed(0))
+    before = ops.launch_counts()
+    out = {}
+    for dev, p in (("cpu", p_cpu), ("cuda", p_gpu)):
+        lg, cache = prefill(cfg, p, toks.to(dev),
+                            init_cache(cfg, 2, 24, dev))
+        t = torch.tensor([20, 13], dtype=torch.int32, device=dev)
+        l1, cache = decode_step_ragged(cfg, p, cache, lg.argmax(-1), t)
+        out[dev] = (lg.cpu(), l1.cpu(), cache["layers"][0]["state"].cpu())
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
+    after = ops.launch_counts()
+    assert after["ssd"] - before["ssd"] == cfg.n_layers
+    assert after["attention"] == before["attention"]

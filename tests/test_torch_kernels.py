@@ -20,6 +20,7 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_attention_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain)
+from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 
 TOL = dict(rtol=3e-5, atol=3e-5)    # f32, as tests/test_kernels.py
 
@@ -115,7 +116,8 @@ def test_ops_take_the_plain_path_on_cpu_without_launching():
         decode_attention_plain(q[:, 0], k, v, vlen).numpy())
     assert ops.launch_counts() == before
     assert ops.KERNEL_TABLE == {"attention": flash_attention,
-                                "decode_attention": decode_attention}
+                                "decode_attention": decode_attention,
+                                "ssd": ssd_scan}
 
 
 def test_wrappers_refuse_devices_without_a_path():
@@ -129,7 +131,8 @@ def test_wrappers_refuse_devices_without_a_path():
 def test_kernel_modules_import_without_building():
     """Importing the kernel modules neither needs nvcc nor builds: the build
     happens at the first launch on a CUDA tensor."""
-    assert _build.SOURCES == ("flash_attention", "decode_attention")
+    assert _build.SOURCES == ("flash_attention", "decode_attention",
+                              "ssd_scan")
     for name in _build.SOURCES:
         assert (_build.CSRC / f"{name}.cu").is_file()
         assert name not in _build._loaded

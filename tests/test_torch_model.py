@@ -166,8 +166,8 @@ def test_bf16_minicpm_reduced_matches_jax():
         assert np.abs(_np(got) - _np(want)).max() <= bound
 
 
-@pytest.mark.parametrize("arch", ["mamba2-370m", "mixtral-8x22b",
-                                  "whisper-tiny", "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "whisper-tiny",
+                                  "zamba2-1.2b"])
 def test_unported_layers_raise_naming_their_roadmap_item(arch):
     cfg = get_config(arch, reduced=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

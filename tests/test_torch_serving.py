@@ -151,7 +151,8 @@ def test_serve_on_cpu_answers_every_request():
                for t in rep["tokens"])
     assert rep["logits_finite"]
     assert rep["device_name"] == "cpu"
-    assert rep["kernel_launches"] == {"attention": 0, "decode_attention": 0}
+    assert rep["kernel_launches"] == {"attention": 0, "decode_attention": 0,
+                                      "ssd": 0}
     bc = rep["batcher"]
     assert bc["n_joins"] == 5 and bc["n_decode_ticks"] > 0
     assert rep["latency_p50_s"] > 0 and rep["latency_p99_s"] \
