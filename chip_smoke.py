@@ -6,8 +6,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100::
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/csrc``, holds
-each against its plain PyTorch version on the card, times them at the main
-paths' shapes, and then, for each of the two main paths (the dense decoder
+each against its plain PyTorch version on the card, checks that the bf16
+flash-attention kernels run on the tensor cores (HGMMA in their SASS),
+times them at the main paths' shapes (the attention kernels at buckets 8
+and 1, beside SDPA), and then, for each of the two main paths (the dense decoder
 minicpm-2b with the two attention kernels, the Mamba2 decoder mamba2-370m
 with the SSD scan): checks the model at full width (two layers) on the card
 against the same weights on the CPU, serves 16 full-width, full-depth
@@ -25,6 +27,7 @@ It exits non-zero, printing no result, where CUDA is not available.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -63,10 +66,15 @@ FA_CASES = [
     (2, 80, 80, 4, 4, 72, True, 0),
     (1, 130, 130, 4, 2, 96, False, 0),
     (2, 200, 200, 8, 2, 128, True, 64),
+    (1, 512, 512, 36, 36, 64, True, 0),     # the minicpm-2b join, bucket 1
+    (3, 1, 200, 8, 2, 64, True, 0),
+    (2, 70, 300, 4, 4, 64, True, 0),
+    (1, 256, 256, 4, 2, 64, True, 16),      # a window inside one tile
+    (2, 77, 77, 4, 4, 64, False, 0),
 ]
 # (B, L, Hq, Hkv, hd, zero_row): tests/test_kernels.py DEC_CASES (block
-# sizes dropped), the minicpm-2b decode shape, other head dims, and a row
-# with valid_len = 0
+# sizes dropped), the minicpm-2b decode shape at buckets 8 and 1 (the most
+# splits), other head dims and groups, and rows with valid_len = 0
 DEC_CASES = [
     (2, 512, 8, 2, 64, False),
     (1, 1000, 4, 4, 128, False),
@@ -78,6 +86,10 @@ DEC_CASES = [
     (2, 100, 4, 4, 72, False),
     (3, 200, 8, 2, 96, False),
     (4, 128, 8, 8, 64, True),
+    (1, 544, 36, 36, 64, False),
+    (4, 544, 16, 4, 64, True),
+    (2, 1000, 32, 4, 128, False),
+    (2, 130, 64, 8, 32, True),
 ]
 # (B, S, H, P, N, chunk, init_state): tests/test_kernels.py SSD_CASES, its
 # init-state case, S no multiple of the chunk (130 is the model-parity
@@ -100,8 +112,9 @@ def log(*a) -> None:
 
 def device_profile(call, runs: int) -> dict:
     """Run ``call`` ``runs`` times under ``torch.profiler`` and return, per
-    run, the host milliseconds (profiler on), the milliseconds the card was
-    busy (the union of every device-side event's interval), the five
+    run, the host milliseconds (profiler on), the kernel launch calls, the
+    milliseconds the card was busy (the union of every device-side event's
+    interval), the five
     kernels that took the most device time and the eight host ops that
     took the most host time of their own."""
     from torch.autograd import DeviceType
@@ -124,7 +137,10 @@ def device_profile(call, runs: int) -> dict:
             end = t
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
-    return {"host_ms": host_s * 1e3 / runs,
+    # cudaLaunchKernel, and cudaLaunchKernelExC for a cluster launch
+    launches = sum(a.count for a in host
+                   if a.key.startswith("cudaLaunchKernel")) / runs
+    return {"host_ms": host_s * 1e3 / runs, "launch_calls": launches,
             "device_busy_ms": busy_us / 1e3 / runs,
             "top": [(n, us / 1e3 / runs) for n, us in top],
             "top_host": [(a.key, a.count // runs,
@@ -182,6 +198,23 @@ def main() -> int:
         log(f"[build] {src}: {len(regs)} instantiations, ptxas: "
             f"{sorted(set(regs))}, {spills} with spills")
     report["build_s"] = build_s
+    # the bf16 flash kernels must run their products on the tensor cores
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run(
+        [cuobjdump, "-sass", str(_build.library_path("flash_attention"))],
+        capture_output=True, text=True, check=True).stdout
+    hgmma, fn = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :")[1].strip()
+        elif fn and "fa_kernel_wgmma" in fn and "HGMMA" in ln:
+            hgmma[fn] = hgmma.get(fn, 0) + 1
+    log(f"[build] flash_attention bf16: {sum(hgmma.values())} HGMMA "
+        f"instructions in {len(hgmma)} kernels (cuobjdump -sass)")
+    if not hgmma:
+        raise AssertionError("the bf16 flash_attention kernels hold no "
+                             "HGMMA instruction")
+    report["hgmma"] = hgmma
 
     # -- 3. kernel vs plain on the card ----------------------------------------
     F = torch.nn.functional
@@ -253,12 +286,17 @@ def main() -> int:
 
     def time_ms(fn, runs=25, warmup=3):
         """Median of ``runs`` CUDA-event timings, L2 flushed before each
-        (the serving path meets every layer's tensors cold)."""
+        (the serving path meets every layer's tensors cold).  A device-side
+        sleep of about half a millisecond after the flush keeps the card busy
+        while the host enqueues ``fn``, so the interval between the events
+        holds the device's time for ``fn`` and not the host's time to reach
+        its launch."""
         for _ in range(warmup):
             fn()
         ts = []
         for _ in range(runs):
             flush.zero_()
+            torch.cuda._sleep(1_000_000)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -269,38 +307,77 @@ def main() -> int:
         return sorted(ts)[len(ts) // 2]
 
     bf = torch.bfloat16
-    B, S, H, hd = 8, 512, 36, 64
-    q, k, v = (rnd(B, S, H, hd, dtype=bf) for _ in range(3))
-    # q, k, v read once and o (q's shape) written once
-    fa_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    fa_flops = 4 * hd * B * H * S * (S + 1) // 2       # causal live pairs
-    fa = {"ms": time_ms(lambda: flash_attention(q, k, v, causal=True)),
-          "plain_ms": time_ms(lambda: flash_attention_plain(q, k, v,
-                                                            causal=True)),
-          "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-              q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-              is_causal=True))}
-    fa_b, fa_f = fa_bytes / HBM_BYTES_PER_S * 1e3, fa_flops / BF16_FLOPS * 1e3
-    fa.update(bound_ms=max(fa_b, fa_f),
-              bound_by="bytes" if fa_b >= fa_f else "operations")
 
-    L = 544
-    qd = rnd(B, H, hd, dtype=bf)
-    kd, vd = rnd(B, L, H, hd, dtype=bf), rnd(B, L, H, hd, dtype=bf)
-    vlen = torch.full((B,), L, dtype=torch.int32, device=dev)
-    live = int(vlen.sum().item())
-    dec_bytes = (2 * qd.numel() * qd.element_size()
-                 + 2 * live * H * hd * kd.element_size()
-                 + vlen.numel() * 4)
-    dec_flops = 4 * hd * H * live
-    dec = {"ms": time_ms(lambda: decode_attention(qd, kd, vd, vlen)),
-           "plain_ms": time_ms(lambda: decode_attention_plain(qd, kd, vd,
-                                                              vlen)),
-           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-               qd[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2)))}
-    d_b, d_f = dec_bytes / HBM_BYTES_PER_S * 1e3, dec_flops / BF16_FLOPS * 1e3
-    dec.update(bound_ms=max(d_b, d_f),
-               bound_by="bytes" if d_b >= d_f else "operations")
+    def bound(nbytes, flops):
+        b_ms, f_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+        return {"bound_ms": max(b_ms, f_ms),
+                "bound_by": "bytes" if b_ms >= f_ms else "operations"}
+
+    def time_fa(B, plain=True, S=512, H=36, hd=64):
+        """The minicpm-2b join's attention at bucket B: kernel, plain
+        version and SDPA in turn, on the same inputs."""
+        q, k, v = (rnd(B, S, H, hd, dtype=bf) for _ in range(3))
+        t = {"ms": time_ms(lambda: flash_attention(q, k, v, causal=True)),
+             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                 is_causal=True))}
+        if plain:
+            t["plain_ms"] = time_ms(lambda: flash_attention_plain(
+                q, k, v, causal=True))
+        # q, k, v read once and o (q's shape) written once; causal pairs
+        t.update(bound((2 * q.numel() + k.numel() + v.numel())
+                       * q.element_size(),
+                       4 * hd * B * H * S * (S + 1) // 2))
+        return t
+
+    def time_dec(B, plain=True, L=544, H=36, hd=64):
+        """The minicpm-2b step's attention at bucket B, every row at
+        valid_len L."""
+        qd = rnd(B, H, hd, dtype=bf)
+        kd, vd = rnd(B, L, H, hd, dtype=bf), rnd(B, L, H, hd, dtype=bf)
+        vlen = torch.full((B,), L, dtype=torch.int32, device=dev)
+        t = {"ms": time_ms(lambda: decode_attention(qd, kd, vd, vlen)),
+             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                 qd[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2)))}
+        if plain:
+            t["plain_ms"] = time_ms(lambda: decode_attention_plain(
+                qd, kd, vd, vlen))
+        live = int(vlen.sum().item())
+        t.update(bound(2 * qd.numel() * qd.element_size()
+                       + 2 * live * H * hd * kd.element_size()
+                       + vlen.numel() * 4, 4 * hd * H * live))
+        return t
+
+    fa, dec = time_fa(8), time_dec(8)
+    fa1, dec1 = time_fa(1, plain=False), time_dec(1, plain=False)
+    for nm, t in (("flash_attention (1,512,512,36,36,64) causal", fa1),
+                  ("decode_attention (1,544,36,36,64) valid_len 544", dec1)):
+        log(f"[timing] {nm}: kernel {t['ms']:.4f} ms, library "
+            f"{t['library_ms']:.4f} ms, bound {t['bound_ms'] * 1e3:.2f} us "
+            f"({t['bound_by']}); {smi}")
+    for t, t1 in ((fa, fa1), (dec, dec1)):
+        t.update(ms_bucket1=t1["ms"], library_ms_bucket1=t1["library_ms"],
+                 bound_ms_bucket1=t1["bound_ms"])
+
+    # What one CTA pays: 36 q tiles of 128 rows (one CTA per SM), not
+    # causal, over 1 and 32 K/V tiles of 64 keys; the fit gives the fixed
+    # cost of a CTA and the cost of each further tile, beside SDPA's.
+    fit = {}
+    for Sk in (64, 2048):
+        q1 = rnd(1, 128, 36, 64, dtype=bf)
+        k1, v1 = rnd(1, Sk, 36, 64, dtype=bf), rnd(1, Sk, 36, 64, dtype=bf)
+        fit[Sk] = (time_ms(lambda: flash_attention(q1, k1, v1, causal=False)),
+                   time_ms(lambda: F.scaled_dot_product_attention(
+                       q1.transpose(1, 2), k1.transpose(1, 2),
+                       v1.transpose(1, 2))))
+    per_tile = [(fit[2048][i] - fit[64][i]) / 31 for i in (0, 1)]
+    report["flash_cta_fit"] = {"fixed_ms": [fit[64][0] - per_tile[0],
+                                            fit[64][1] - per_tile[1]],
+                               "per_tile_ms": per_tile}
+    log(f"[timing] flash_attention, one CTA per SM: fixed "
+        f"{fit[64][0] - per_tile[0]:.4f} ms + {per_tile[0]:.5f} ms per "
+        f"64-key tile; SDPA {fit[64][1] - per_tile[1]:.4f} ms + "
+        f"{per_tile[1]:.5f} ms; {smi}")
 
     # the mamba2-370m serving join: B 8, S 512, H 32, P 64, N 128, Q 64
     B, S, H, P, N, Q = 8, 512, 32, 64, 128, 64
@@ -322,7 +399,7 @@ def main() -> int:
     s_b, s_f = ssd_bytes / HBM_BYTES_PER_S * 1e3, ssd_flops / BF16_FLOPS * 1e3
     ssd.update(bound_ms=max(s_b, s_f),
                bound_by="bytes" if s_b >= s_f else "operations")
-    del flush, q, k, v, qd, kd, vd, x, dt, Bm, Cm
+    del flush, x, dt, Bm, Cm
     for nm, t in (("flash_attention (8,512,512,36,36,64) causal", fa),
                   ("decode_attention (8,544,36,36,64) valid_len 544", dec),
                   ("ssd_scan (8,512,32,64) N 128 Q 64", ssd)):
@@ -331,6 +408,14 @@ def main() -> int:
         log(f"[timing] {nm}: kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, library {lib}, bound "
             f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}); {smi}")
+    for nm, t in (("flash_attention", fa), ("decode_attention", dec)):
+        log(f"[timing] {nm}: kernel / library "
+            + ", ".join(f"bucket {b} {t[m] / t[lm]:.2f}x, bound share "
+                        f"{t[bm] / t[m]:.2f}"
+                        for b, m, lm, bm in (
+                            (8, "ms", "library_ms", "bound_ms"),
+                            (1, "ms_bucket1", "library_ms_bucket1",
+                             "bound_ms_bucket1"))))
 
     # The two main paths: the model, its parity prompt length (130 is no
     # multiple of mamba2's chunk of 64, so the SSD padding runs on the
@@ -465,7 +550,9 @@ def main() -> int:
                 f"{prof['device_busy_ms']:.2f} ms of {wall_ms:.2f} ms "
                 f"measured without the profiler (idle share "
                 f"{'not measured' if idle is None else f'{idle:.2f}'}); "
-                f"{prof['host_ms']:.2f} ms with it; top kernels (ms): "
+                f"{prof['host_ms']:.2f} ms with it; "
+                f"{prof['launch_calls']:.0f} kernel launch calls; top "
+                f"kernels (ms): "
                 + ", ".join(f"{n[:40]} {t:.2f}" for n, t in prof["top"]))
             log(f"[profile] {model} bucket-8 {what}: top host ops (calls, "
                 f"self ms): "
@@ -478,27 +565,35 @@ def main() -> int:
     # each kernel: its launches over all of serve() on its own path, and the
     # error and times at its serving shape
     kernels = []
-    for kname, tm, op, model, case, src, tpu in (
+    for kname, tm, op, model, case, src, tpu, pr, design in (
             ("flash_attention", fa, "attention", "minicpm-2b",
              (8, 512, 512, 36, 36, 64, True, 0),
              "src/repro_torch/csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attention.py:98"),
+             "src/repro/kernels/flash_attention.py:98", 13,
+             "bf16: wgmma for both products, TMA loads and store, "
+             "heaviest q tiles first; f32: CUDA cores"),
             ("decode_attention", dec, "decode_attention", "minicpm-2b",
              (8, 544, 36, 36, 64, False),
              "src/repro_torch/csrc/decode_attention.cu",
-             "src/repro/kernels/decode_attention.py:69"),
+             "src/repro/kernels/decode_attention.py:69", 13,
+             "split over the cache, one cluster per (b, KV head), "
+             "combine through distributed shared memory, cp.async ring"),
             ("ssd_scan", ssd, "ssd", "mamba2-370m",
              (8, 512, 32, 64, 128, 64, False),
              "src/repro_torch/csrc/ssd_scan.cu",
-             "src/repro/kernels/ssd_scan.py:77")):
+             "src/repro/kernels/ssd_scan.py:77", 12,
+             "one block per (b, head), chunks in order, CUDA cores")):
         kernels.append({"name": kname, "route": "cuda", "source": src,
-                        "replaces": tpu,
+                        "replaces": tpu, "pr": pr, "design": design,
                         "launches": path_launches[model][op],
                         "max_abs_err": errs[kname][(case, "bfloat16")],
                         "ms": tm["ms"], "plain_ms": tm["plain_ms"],
                         "bound_ms": tm["bound_ms"],
                         "bound_by": tm["bound_by"],
-                        "library_ms": tm["library_ms"]})
+                        "library_ms": tm["library_ms"],
+                        **{key: tm[key] for key in (
+                            "ms_bucket1", "library_ms_bucket1",
+                            "bound_ms_bucket1") if key in tm}})
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     out = ROOT / "build"

@@ -1,6 +1,9 @@
-// Shared helpers of the attention kernels: element conversion and a
-// cooperative copy of a row tile from device memory into float32 shared
-// memory.
+// Shared helpers of the kernels: element conversion and a cooperative,
+// synchronous copy of a row tile from device memory into float32 shared
+// memory.  load_tile widens every element to float32 and is meant for the
+// CUDA-core kernels only: the float32 flash-attention path and ssd_scan.
+// The bf16 attention paths keep their tiles in bf16 and load them
+// asynchronously (cp.async) in their own sources.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -24,8 +24,10 @@ from typing import Callable, Dict, Iterable, Sequence
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("flash_attention", "decode_attention", "ssd_scan")
+# -split-compile 0: each nvcc compiles its kernels on every core it finds
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-split-compile", "0")
 
 _loaded: Dict[str, Callable[..., int]] = {}    # name -> bound launcher
 

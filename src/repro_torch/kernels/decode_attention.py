@@ -15,6 +15,7 @@ kernel.
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Tuple
 
 import torch
 
@@ -24,8 +25,37 @@ from .ref import decode_attention_ref
 HEAD_DIMS = (32, 64, 72, 96, 128)
 DTYPES = (torch.bfloat16, torch.float32)
 # pointers, then ints, then the stream: the C launcher's parameters
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-MAX_GROUP_WIDTH = 1024      # G * hd: the kernel's 128 threads x 8 accumulators
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+MAX_GROUP_WIDTH = 1024      # G * hd: the kernel's per-lane registers
+SPLIT_TILE = 32             # the kernel's keys per tile: splits are multiples
+MAX_SPLIT = 8               # CTAs per cluster that every Hopper card takes
+CTAS_PER_SM = 4             # the plan aims at this many CTAs per SM
+
+_sm_counts: Dict[int, int] = {}     # device index -> streaming multiprocessors
+
+
+def split_plan(B: int, Hkv: int, L: int, sm_count: int) -> Tuple[int, int]:
+    """How the kernel splits the cache: ``(n_split, chunk)``.  Split ``s`` of
+    every (b, KV head) covers keys ``[s * chunk, min((s + 1) * chunk, L))``;
+    the ranges are contiguous, cover ``[0, L)`` and are none of them empty.
+    ``chunk`` is a whole number of the kernel's 32-key tiles and
+    ``n_split <= 8`` (one thread-block cluster per (b, KV head)).  The plan
+    aims at ``CTAS_PER_SM`` CTAs per SM over the ``B * Hkv * n_split``
+    CTAs, so that batch 1 fills the card as batch 8 does."""
+    tiles = max(1, -(-L // SPLIT_TILE))
+    want = -(-CTAS_PER_SM * sm_count // max(1, B * Hkv))
+    n = max(1, min(MAX_SPLIT, want, tiles))
+    chunk = -(-tiles // n) * SPLIT_TILE
+    return max(1, -(-L // chunk)), chunk
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _sm_counts[idx]
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -85,16 +115,19 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    n_split, chunk = split_plan(B, Hkv, L, _sm_count(q.device))
     fn = _build.launcher("decode_attention", _ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  valid_len.data_ptr(), out.data_ptr(),
-                 int(q.dtype == torch.bfloat16), B, L, Hq, Hkv, hd, stream)
+                 int(q.dtype == torch.bfloat16), B, L, Hq, Hkv, hd, n_split,
+                 chunk, stream)
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed "
                            f"(error {err}) at q {tuple(q.shape)}, "
-                           f"k {tuple(k.shape)}, {q.dtype}")
+                           f"k {tuple(k.shape)}, {q.dtype}, {n_split} "
+                           f"splits of {chunk} keys")
     decode_attention.launches += 1
     return out
 

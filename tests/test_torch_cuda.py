@@ -45,7 +45,19 @@ def _close(got, want, dtype):
 @pytest.mark.parametrize("case", [(2, 100, 228, 6, 3, 64, True, 100),
                                   (2, 1, 96, 6, 3, 72, True, 32),
                                   (1, 130, 130, 4, 2, 96, False, 0),
-                                  (1, 64, 64, 2, 1, 128, True, 0)], ids=str)
+                                  (1, 64, 64, 2, 1, 128, True, 0),
+                                  # the minicpm-2b join at buckets 1 and 8
+                                  (1, 512, 512, 36, 36, 64, True, 0),
+                                  (8, 512, 512, 36, 36, 64, True, 0),
+                                  (3, 1, 200, 8, 2, 64, True, 0),   # Sq = 1
+                                  (2, 70, 300, 4, 4, 64, True, 0),  # Sq < Sk
+                                  (1, 256, 256, 4, 2, 64, True, 16),  # window
+                                  (2, 150, 150, 4, 2, 32, True, 0),
+                                  (1, 190, 250, 4, 1, 72, True, 0),
+                                  (2, 129, 129, 2, 2, 96, True, 40),
+                                  (1, 300, 300, 8, 4, 128, False, 0),
+                                  (2, 77, 77, 4, 4, 64, False, 0),  # Sk ragged
+                                  ], ids=str)
 def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
     B, Sq, Sk, Hq, Hkv, hd, causal, w = case
     q = torch.randn(B, Sq, Hq, hd, generator=cuda, device="cuda").to(dtype)
@@ -70,9 +82,45 @@ def test_decode_attention_kernel_matches_plain(cuda, case, dtype):
     vlen = torch.randint(1, L + 1, (B,), generator=cuda, device="cuda",
                          dtype=torch.int32)
     vlen[0] = 0
+    n = decode_attention.launches
     out = decode_attention(q, k, v, vlen)
     torch.cuda.synchronize()
+    assert decode_attention.launches == n + 1
     assert not out[0].any()
+    _close(out, decode_attention_plain(q, k, v, vlen), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", [
+    # (B, L, Hq, Hkv, hd, valid_len): batch 1 of minicpm-2b (the most
+    # splits), full and ending inside the first split; rows that end inside
+    # the first split beside full rows and a row with valid_len = 0; Hq/Hkv
+    # of 1, 4 and 8
+    (1, 544, 36, 36, 64, [544]),
+    (1, 544, 36, 36, 64, [37]),
+    (8, 544, 36, 36, 64, [544, 1, 0, 300, 64, 65, 543, 128]),
+    (4, 544, 16, 4, 64, [0, 20, 544, 200]),
+    (2, 1000, 32, 4, 128, [999, 3]),
+    (3, 257, 8, 8, 64, [257, 0, 129]),
+    (2, 300, 8, 1, 128, [300, 10]),
+    (2, 130, 64, 8, 32, [130, 66]),
+    (1, 200, 8, 1, 96, [0]),
+    (2, 100, 32, 1, 32, [100, 51]),
+], ids=str)
+def test_decode_attention_split_kernel_matches_plain(cuda, case, dtype):
+    B, L, Hq, Hkv, hd, vl = case
+    q = torch.randn(B, Hq, hd, generator=cuda, device="cuda").to(dtype)
+    k = torch.randn(B, L, Hkv, hd, generator=cuda, device="cuda").to(dtype)
+    v = torch.randn(B, L, Hkv, hd, generator=cuda, device="cuda").to(dtype)
+    vlen = torch.tensor(vl, dtype=torch.int32, device="cuda")
+    n = decode_attention.launches
+    out = decode_attention(q, k, v, vlen)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == n + 1
+    assert torch.isfinite(out).all()
+    for b in range(B):
+        if vl[b] == 0:
+            assert not out[b].any()
     _close(out, decode_attention_plain(q, k, v, vlen), dtype)
 
 
