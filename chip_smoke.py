@@ -7,9 +7,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100::
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/csrc``, holds
 each against its plain PyTorch version on the card, checks that the bf16
-flash-attention kernels run on the tensor cores (HGMMA in their SASS),
-times them at the main paths' shapes (the attention kernels at buckets 8
-and 1, beside SDPA), and then, for each of the two main paths (the dense decoder
+flash-attention and SSD kernels run on the tensor cores (HGMMA in their
+SASS), times them at the main paths' shapes (every kernel at buckets 8 and
+1, the attention kernels beside SDPA, the SSD scan at every split of its
+chunks), and then, for each of the two main paths (the dense decoder
 minicpm-2b with the two attention kernels, the Mamba2 decoder mamba2-370m
 with the SSD scan): checks the model at full width (two layers) on the card
 against the same weights on the CPU, serves 16 full-width, full-depth
@@ -93,7 +94,9 @@ DEC_CASES = [
 ]
 # (B, S, H, P, N, chunk, init_state): tests/test_kernels.py SSD_CASES, its
 # init-state case, S no multiple of the chunk (130 is the model-parity
-# prompt below), and the mamba2-370m serving join
+# prompt below), the mamba2-370m serving join at buckets 8 and 1, and a
+# ragged S of more than 8 chunks with an initial state (several chunks a
+# CTA)
 SSD_CASES = [
     (2, 128, 4, 64, 32, 64, False),
     (1, 64, 2, 32, 16, 16, False),
@@ -103,6 +106,8 @@ SSD_CASES = [
     (2, 130, 32, 64, 128, 64, False),
     (1, 100, 2, 32, 32, 16, True),
     (8, 512, 32, 64, 128, 64, False),
+    (1, 512, 32, 64, 128, 64, False),
+    (2, 1100, 4, 64, 128, 64, True),
 ]
 
 
@@ -162,6 +167,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    ssd_mod = sys.modules["repro_torch.kernels.ssd_scan"]
     from repro_torch.launch.serve import serve
     from repro_torch.models import (decode_step_ragged, init_cache,
                                     init_params, prefill)
@@ -198,23 +204,27 @@ def main() -> int:
         log(f"[build] {src}: {len(regs)} instantiations, ptxas: "
             f"{sorted(set(regs))}, {spills} with spills")
     report["build_s"] = build_s
-    # the bf16 flash kernels must run their products on the tensor cores
+    # the bf16 flash and SSD kernels must run their products on the tensor
+    # cores
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run(
-        [cuobjdump, "-sass", str(_build.library_path("flash_attention"))],
-        capture_output=True, text=True, check=True).stdout
-    hgmma, fn = {}, None
-    for ln in sass.splitlines():
-        if "Function :" in ln:
-            fn = ln.split("Function :")[1].strip()
-        elif fn and "fa_kernel_wgmma" in fn and "HGMMA" in ln:
-            hgmma[fn] = hgmma.get(fn, 0) + 1
-    log(f"[build] flash_attention bf16: {sum(hgmma.values())} HGMMA "
-        f"instructions in {len(hgmma)} kernels (cuobjdump -sass)")
-    if not hgmma:
-        raise AssertionError("the bf16 flash_attention kernels hold no "
-                             "HGMMA instruction")
-    report["hgmma"] = hgmma
+    report["hgmma"] = {}
+    for src, kern in (("flash_attention", "fa_kernel_wgmma"),
+                      ("ssd_scan", "ssd_kernel_wgmma")):
+        sass = subprocess.run(
+            [cuobjdump, "-sass", str(_build.library_path(src))],
+            capture_output=True, text=True, check=True).stdout
+        hgmma, fn = {}, None
+        for ln in sass.splitlines():
+            if "Function :" in ln:
+                fn = ln.split("Function :")[1].strip()
+            elif fn and kern in fn and "HGMMA" in ln:
+                hgmma[fn] = hgmma.get(fn, 0) + 1
+        log(f"[build] {src} bf16: {sum(hgmma.values())} HGMMA instructions "
+            f"in {len(hgmma)} kernels (cuobjdump -sass)")
+        if not hgmma:
+            raise AssertionError(f"the bf16 {src} kernels hold no HGMMA "
+                                 f"instruction")
+        report["hgmma"][src] = hgmma
 
     # -- 3. kernel vs plain on the card ----------------------------------------
     F = torch.nn.functional
@@ -379,30 +389,78 @@ def main() -> int:
         f"64-key tile; SDPA {fit[64][1] - per_tile[1]:.4f} ms + "
         f"{per_tile[1]:.5f} ms; {smi}")
 
-    # the mamba2-370m serving join: B 8, S 512, H 32, P 64, N 128, Q 64
-    B, S, H, P, N, Q = 8, 512, 32, 64, 128, 64
-    x = rnd(B, S, H, P, dtype=bf)
-    dt = F.softplus(rnd(B, S, H, dtype=torch.float32)).to(bf)
-    A = -torch.exp(0.5 * rnd(H, dtype=torch.float32))
-    Bm, Cm = rnd(B, S, N, dtype=bf), rnd(B, S, N, dtype=bf)
-    # x, dt, A, B, C read once; y (x's shape) and the f32 state written once
-    ssd_bytes = ((2 * x.numel() + dt.numel() + Bm.numel() + Cm.numel())
-                 * x.element_size() + A.numel() * 4 + B * H * P * N * 4)
-    # per (b, h, chunk): C.B^T, its product with x dt, C.state^T, the state
-    ssd_flops = (B * H * (S // Q)
-                 * (2 * Q * Q * N + 2 * Q * Q * P + 2 * Q * N * P
-                    + 2 * P * N * Q))
-    ssd = {"ms": time_ms(lambda: ssd_scan(x, dt, A, Bm, Cm, chunk=Q)),
-           "plain_ms": time_ms(lambda: ssd_scan_plain(x, dt, A, Bm, Cm,
-                                                      chunk=Q)),
-           "library_ms": None}          # no single PyTorch call computes it
-    s_b, s_f = ssd_bytes / HBM_BYTES_PER_S * 1e3, ssd_flops / BF16_FLOPS * 1e3
-    ssd.update(bound_ms=max(s_b, s_f),
-               bound_by="bytes" if s_b >= s_f else "operations")
-    del flush, x, dt, Bm, Cm
+    def time_ssd(B, plain=True, S=512, H=32, P=64, N=128, Q=64):
+        """The mamba2-370m join's SSD scan at bucket B; then the kernel at
+        every split of the chunks that the plan could take, on the same
+        inputs (the plan swapped for a fixed one, which changes nothing but
+        R and the run length the wrapper passes)."""
+        x = rnd(B, S, H, P, dtype=bf)
+        dt = F.softplus(rnd(B, S, H, dtype=torch.float32)).to(bf)
+        A = -torch.exp(0.5 * rnd(H, dtype=torch.float32))
+        Bm, Cm = rnd(B, S, N, dtype=bf), rnd(B, S, N, dtype=bf)
+        t = {"ms": time_ms(lambda: ssd_scan(x, dt, A, Bm, Cm, chunk=Q)),
+             "library_ms": None,     # no single PyTorch call computes it
+             "plan": ssd_mod.ssd_plan(B, H, S, ssd_mod.KERNEL_CHUNK,
+                                      torch.cuda.get_device_properties(
+                                          0).multi_processor_count)}
+        if plain:
+            t["plain_ms"] = time_ms(lambda: ssd_scan_plain(x, dt, A, Bm, Cm,
+                                                           chunk=Q))
+        planner, n_chunks = ssd_mod.ssd_plan, S // ssd_mod.KERNEL_CHUNK
+        t["splits_ms"] = {}
+        try:
+            for per in sorted({-(-n_chunks // r) for r in range(1, 9)}):
+                R = -(-n_chunks // per)
+                ssd_mod.ssd_plan = lambda *_, R=R, per=per: (R, per)
+                t["splits_ms"][f"{R}x{per}"] = time_ms(
+                    lambda: ssd_scan(x, dt, A, Bm, Cm, chunk=Q))
+        finally:
+            ssd_mod.ssd_plan = planner
+        # x, dt, A, B, C read once; y (x's shape) and the f32 state written
+        # once; per (b, h, chunk): C.B^T, its product with x dt, C.state^T,
+        # the state update
+        t.update(bound(
+            (2 * x.numel() + dt.numel() + Bm.numel() + Cm.numel())
+            * x.element_size() + A.numel() * 4 + B * H * P * N * 4,
+            B * H * (S // Q) * (2 * Q * Q * N + 2 * Q * Q * P + 2 * Q * N * P
+                                + 2 * P * N * Q)))
+        return t
+
+    ssd, ssd1 = time_ssd(8), time_ssd(1)
+    ssd.update(ms_bucket1=ssd1["ms"], plain_ms_bucket1=ssd1["plain_ms"],
+               bound_ms_bucket1=ssd1["bound_ms"])
+    for b, t in ((8, ssd), (1, ssd1)):
+        log(f"[timing] ssd_scan ({b},512,32,64) N 128: plan {t['plan']} "
+            f"(ranks, chunks each) {t['ms']:.4f} ms; every split: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in t["splits_ms"].items())
+            + f" ms; {smi}")
+    report["ssd_splits_ms"] = {8: ssd["splits_ms"], 1: ssd1["splits_ms"]}
+    # What one CTA pays: one CTA per (b, h) (the plan fixed to one rank),
+    # 32 of them, over 1 and 16 chunks; the fit gives the fixed cost of a
+    # CTA and the cost of each further chunk
+    fit, planner = {}, ssd_mod.ssd_plan
+    try:
+        ssd_mod.ssd_plan = lambda B, H, S, chunk, sms: (1, -(-S // chunk))
+        for S_fit in (64, 1024):
+            x1 = rnd(1, S_fit, 32, 64, dtype=bf)
+            dt1 = F.softplus(rnd(1, S_fit, 32, dtype=torch.float32)).to(bf)
+            A1 = -torch.exp(0.5 * rnd(32, dtype=torch.float32))
+            B1, C1 = rnd(1, S_fit, 128, dtype=bf), rnd(1, S_fit, 128, dtype=bf)
+            fit[S_fit] = time_ms(lambda: ssd_scan(x1, dt1, A1, B1, C1,
+                                                  chunk=64))
+    finally:
+        ssd_mod.ssd_plan = planner
+    per_chunk = (fit[1024] - fit[64]) / 15
+    report["ssd_cta_fit"] = {"fixed_ms": fit[64] - per_chunk,
+                             "per_chunk_ms": per_chunk}
+    log(f"[timing] ssd_scan, one CTA per (b, h), 32 CTAs: fixed "
+        f"{fit[64] - per_chunk:.4f} ms + {per_chunk:.5f} ms per 64-row "
+        f"chunk; {smi}")
+    del flush
     for nm, t in (("flash_attention (8,512,512,36,36,64) causal", fa),
                   ("decode_attention (8,544,36,36,64) valid_len 544", dec),
-                  ("ssd_scan (8,512,32,64) N 128 Q 64", ssd)):
+                  ("ssd_scan (8,512,32,64) N 128 Q 64", ssd),
+                  ("ssd_scan (1,512,32,64) N 128 Q 64", ssd1)):
         lib = ("none" if t["library_ms"] is None
                else f"{t['library_ms']:.4f} ms")
         log(f"[timing] {nm}: kernel {t['ms']:.4f} ms, plain "
@@ -581,8 +639,11 @@ def main() -> int:
             ("ssd_scan", ssd, "ssd", "mamba2-370m",
              (8, 512, 32, 64, 128, 64, False),
              "src/repro_torch/csrc/ssd_scan.cu",
-             "src/repro/kernels/ssd_scan.py:77", 12,
-             "one block per (b, head), chunks in order, CUDA cores")):
+             "src/repro/kernels/ssd_scan.py:77", 14,
+             "bf16: chunks split over a cluster per (b, head), carried "
+             "state through distributed shared memory, all four products "
+             "on wgmma with hi + lo bf16 operands, TMA loads and store; "
+             "f32: CUDA cores")):
         kernels.append({"name": kname, "route": "cuda", "source": src,
                         "replaces": tpu, "pr": pr, "design": design,
                         "launches": path_launches[model][op],
@@ -593,7 +654,8 @@ def main() -> int:
                         "library_ms": tm["library_ms"],
                         **{key: tm[key] for key in (
                             "ms_bucket1", "library_ms_bucket1",
-                            "bound_ms_bucket1") if key in tm}})
+                            "plain_ms_bucket1", "bound_ms_bucket1")
+                           if key in tm}})
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     out = ROOT / "build"

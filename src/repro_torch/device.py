@@ -7,11 +7,13 @@ carries on quietly on the CPU.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Dict, Optional, Union
 
 import torch
 
 DeviceLike = Union[str, torch.device, None]
+
+_sm_counts: Dict[int, int] = {}     # device index -> streaming multiprocessors
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
@@ -28,3 +30,14 @@ def device_name(device: Optional[torch.device]) -> str:
     if device is not None and device.type == "cuda":
         return torch.cuda.get_device_name(device)
     return "cpu"
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device, which the kernels' launch
+    plans fill."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _sm_counts[idx]

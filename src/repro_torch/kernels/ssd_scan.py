@@ -5,7 +5,9 @@ Replaces the Pallas TPU kernel ``src/repro/kernels/ssd_scan.py``
 (``ssd_scan``, body ``_ssd_kernel``).  :func:`ssd_scan` picks the
 implementation from the device of its inputs: CPU tensors go to
 :func:`ssd_scan_plain`, CUDA tensors launch the kernel or raise.
-``ssd_scan.launches`` counts kernel launches.
+``ssd_scan.launches`` counts kernel launches.  For bf16 inputs the kernel
+splits the chunks of each (b, h) across a thread-block cluster:
+:func:`ssd_plan` says how.
 
 Contract (``ops.ssd`` in the JAX package): x (B,S,H,P), dt (B,S,H) after
 softplus, A (H,) float32 and <= 0, Bm and Cm (B,S,N) shared by every head,
@@ -23,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ..device import sm_count
 
 f32 = torch.float32
 HEAD_DIMS = (32, 64)              # P
@@ -30,7 +33,29 @@ STATE_DIMS = (16, 32, 64, 128)    # N
 CHUNKS = (16, 32, 64)             # Q
 DTYPES = (torch.bfloat16, torch.float32)
 # pointers, then ints, then the stream: the C launcher's parameters
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+KERNEL_CHUNK = 64           # rows of one step of the bf16 kernel (wgmma M)
+MAX_RANKS = 8               # CTAs per cluster that every Hopper card takes
+CTAS_PER_SM = 1             # the plan aims at this many CTAs per SM
+
+
+def ssd_plan(B: int, H: int, S: int, chunk: int,
+             sm_count: int) -> Tuple[int, int]:
+    """How the bf16 kernel splits the chunks of each (b, h): ``(R,
+    chunks_per_cta)``.  The sequence is cut into ``ceil(S / chunk)`` chunks
+    of ``chunk`` rows; CTA ``r`` of the (b, h)'s cluster owns chunks ``[r *
+    chunks_per_cta, min((r + 1) * chunks_per_cta, n_chunks))``.  The runs
+    are contiguous, cover every chunk and are none of them empty, and ``1 <=
+    R <= 8``.  The plan takes the fewest ranks that give the ``B * H * R``
+    CTAs ``CTAS_PER_SM`` per SM, in runs of equal length, so that batch 1
+    fills the card as batch 8 does: every rank but the last walks its run
+    twice and reads its predecessors' states, so a split past that costs
+    more than it saves (``chip_smoke.py`` times every split)."""
+    n_chunks = max(1, -(-S // chunk))
+    want = -(-CTAS_PER_SM * sm_count // max(1, B * H))
+    n = max(1, min(MAX_RANKS, want, n_chunks))
+    per = -(-n_chunks // n)
+    return -(-n_chunks // per), per
 
 
 def _pad_to_chunk(x, dt, Bm, Cm, chunk: int):
@@ -145,19 +170,21 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     st = torch.empty((B, H, P, N), dtype=f32, device=x.device)
     if B * H == 0:
         return y[:, :S], st
+    bf16 = x.dtype == torch.bfloat16
+    R, per = (ssd_plan(B, H, xp.shape[1], KERNEL_CHUNK, sm_count(x.device))
+              if bf16 else (1, 1))
     fn = _build.launcher("ssd_scan", _ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(xp.data_ptr(), dtp.data_ptr(), A.data_ptr(), Bp.data_ptr(),
                  Cp.data_ptr(),
                  None if init_state is None else init_state.data_ptr(),
-                 y.data_ptr(), st.data_ptr(),
-                 int(x.dtype == torch.bfloat16), B, xp.shape[1], H, P, N,
-                 chunk, stream)
+                 y.data_ptr(), st.data_ptr(), int(bf16), B, xp.shape[1], H,
+                 P, N, chunk, R, per, stream)
     if err:
         raise RuntimeError(f"ssd_scan kernel launch failed (error {err}) at "
                            f"x {tuple(x.shape)}, N {N}, chunk {chunk}, "
-                           f"{x.dtype}")
+                           f"{x.dtype}, {R} ranks of {per} chunks")
     ssd_scan.launches += 1
     return y[:, :S], st
 

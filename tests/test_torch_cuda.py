@@ -130,9 +130,14 @@ def test_decode_attention_split_kernel_matches_plain(cuda, case, dtype):
                                   (2, 128, 2, 32, 16, 64, True),
                                   (1, 100, 2, 32, 16, 64, True),
                                   (2, 130, 8, 64, 128, 64, False),
-                                  (1, 40, 3, 32, 64, 32, True)], ids=str)
+                                  (1, 40, 3, 32, 64, 32, True),
+                                  # the mamba2-370m join at buckets 1 and 8
+                                  (1, 512, 32, 64, 128, 64, False),
+                                  (8, 512, 32, 64, 128, 64, False),
+                                  # more than 8 chunks, several a CTA
+                                  (2, 1100, 4, 64, 128, 64, True)], ids=str)
 def test_ssd_scan_kernel_matches_plain(cuda, case, dtype):
-    """(B, S, H, P, N, chunk, init_state); S 100, 130 and 40 are no
+    """(B, S, H, P, N, chunk, init_state); S 100, 130, 40 and 1100 are no
     multiple of the chunk."""
     B, S, H, P, N, Q, init = case
     x = torch.randn(B, S, H, P, generator=cuda, device="cuda").to(dtype)
@@ -151,6 +156,35 @@ def test_ssd_scan_kernel_matches_plain(cuda, case, dtype):
     assert st.shape == (B, H, P, N) and st.dtype == torch.float32
     yp, sp = ssd_scan_plain(x, dt, A, Bm, Cm, chunk=Q, init_state=s0)
     ty, ts = SSD_TOL[dtype]
+    torch.testing.assert_close(y.float(), yp.float(), rtol=ty, atol=ty)
+    torch.testing.assert_close(st, sp, rtol=ts, atol=ts)
+
+
+@pytest.mark.parametrize("split", [(1, 8), (2, 4), (3, 3), (4, 2), (8, 1)],
+                         ids=str)
+def test_ssd_scan_kernel_matches_plain_at_every_split(cuda, split,
+                                                      monkeypatch):
+    """The bf16 kernel with its plan fixed to (ranks, chunks each), at a
+    ragged S of 8 chunks with an initial state: every split the plan can
+    take at 8 chunks gives the plain version's result, in one launch."""
+    import importlib
+    ssd_mod = importlib.import_module("repro_torch.kernels.ssd_scan")
+    monkeypatch.setattr(ssd_mod, "ssd_plan", lambda *_: split)
+    B, S, H, P, N = 2, 500, 8, 64, 128
+    bf = torch.bfloat16
+    x = torch.randn(B, S, H, P, generator=cuda, device="cuda").to(bf)
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, S, H, generator=cuda, device="cuda")).to(bf)
+    A = -torch.exp(0.5 * torch.randn(H, generator=cuda, device="cuda"))
+    Bm = torch.randn(B, S, N, generator=cuda, device="cuda").to(bf)
+    Cm = torch.randn(B, S, N, generator=cuda, device="cuda").to(bf)
+    s0 = torch.randn(B, H, P, N, generator=cuda, device="cuda")
+    n = ssd_scan.launches
+    y, st = ssd_scan(x, dt, A, Bm, Cm, chunk=64, init_state=s0)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == n + 1
+    yp, sp = ssd_scan_plain(x, dt, A, Bm, Cm, chunk=64, init_state=s0)
+    ty, ts = SSD_TOL[bf]
     torch.testing.assert_close(y.float(), yp.float(), rtol=ty, atol=ty)
     torch.testing.assert_close(st, sp, rtol=ts, atol=ts)
 
