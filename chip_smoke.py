@@ -16,8 +16,14 @@ with the SSD scan): checks the model at full width (two layers) on the card
 against the same weights on the CPU, serves 16 full-width, full-depth
 requests through continuous batching, asserting that every decoder layer's
 hot spot went through its kernel, and profiles one full-bucket join and
-decode step to show how much of their time the card is busy.  Any failed
-phase raises and the script exits non-zero.  The
+decode step to show how much of their time the card is busy.  Last, it
+serves both models at once, at full width and depth, through Archipelago's
+control plane: ``simulate(stack="archipelago", backend="torch-batched")``
+with continuous batching (the LBS, the SGSs and the sandbox manager over the
+card), asserting that every request completes once and that every kernel
+launched once per layer in each join or decode step; and it runs
+mamba2-370m briefly under the ``torch`` and windowed ``torch-batched``
+backends.  Any failed phase raises and the script exits non-zero.  The
 second-to-last line of output is a JSON object ``{"kernels": [...]}``
 (times, bounds, launches); the last line is ``{"ok": true, "device":
 {...}}``.  A full report is written to
@@ -151,6 +157,148 @@ def device_profile(call, runs: int) -> dict:
             "top_host": [(a.key, a.count // runs,
                           a.self_cpu_time_total / 1e3 / runs)
                          for a in host[:8]]}
+
+
+def scheduler_phase(dev, chat_cfg, ssm_cfg, smi: str, prompt_len: int = 512,
+                    gen_len: int = 32, duration: float = 8.0,
+                    rps: float = 2.0) -> dict:
+    """Phase 8: two tenants, a dense chat app and a Mamba2 completion app,
+    served through ``simulate(stack="archipelago")`` with the continuous
+    ``torch-batched`` backend; then mamba2-370m alone under ``torch`` and
+    windowed ``torch-batched``.  Launch counts are set to 0 before each run
+    (calibration included) and read after it."""
+    from repro_torch.core import (BatchedTorchBackend, ClusterConfig,
+                                  TorchBackend)
+    from repro_torch.kernels import ops as kops
+    from repro_torch.serving import ServedModel, ServingApp
+    from repro_torch.sim import Experiment, simulate
+
+    def experiment(backend, apps, duration, rps, drain):
+        return Experiment(
+            stack="archipelago", backend=backend,
+            workload_factory="serving_apps",
+            workload_kwargs=dict(apps=apps, duration=duration, rps=rps,
+                                 prewarm_per_fn=1),
+            cluster=ClusterConfig(n_sgs=2, workers_per_sgs=2,
+                                  cores_per_worker=4, pool_mem_mb=2048.0),
+            warmup=0.0, drain=drain)
+
+    def check_served(tag, r):
+        acc = r.accounting
+        log(f"[scheduler] {tag}: accounting {acc}; cold starts "
+            f"{r.cold_start_count}; backend counters {r.backend_counters}")
+        for cls, st in sorted(r.per_class.items()):
+            if not 0 < st.n_completed == st.n_requests:
+                raise AssertionError(f"{tag}: app {cls} completed "
+                                     f"{st.n_completed}/{st.n_requests}")
+        if acc["lost"] or acc["duplicate_completions"] \
+                or acc["completed"] != acc["arrivals"]:
+            raise AssertionError(f"{tag}: accounting {acc}")
+
+    fns = {"chat/gen": chat_cfg, "ssm/gen": ssm_cfg}
+    apps = [ServingApp("chat", {"chat/gen": ServedModel(
+                chat_cfg, prompt_len=prompt_len, gen_len=gen_len)},
+                       slack=0.8),
+            ServingApp("complete", {"ssm/gen": ServedModel(
+                ssm_cfg, prompt_len=prompt_len, gen_len=gen_len)},
+                       slack=1.2)]
+    backend = BatchedTorchBackend(max_batch=8, batching="continuous",
+                                  device=dev)
+    # drain: every request completes well inside it (the run stops early
+    # in wall time once only the control plane's timers are left)
+    exp = experiment(backend, apps, duration, rps, drain=60.0)
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    # calibration (simulate finds the backend calibrated and reuses it),
+    # timed apart from the serving run
+    backend.build(exp, exp.resolve_workload())
+    calib_s = time.perf_counter() - t0
+    ex = backend.executor
+    # per-function joins, decode ticks and step slots of the serving run
+    runs = {fn: {"joins": 0, "ticks": 0, "slots": 0} for fn in fns}
+    admit, step = ex.admit, ex.step
+
+    def counted_admit(fn, invs, slots):
+        runs[fn]["joins"] += 1
+        return admit(fn, invs, slots)
+
+    def counted_step(fn, slots):
+        runs[fn]["ticks"] += 1
+        runs[fn]["slots"] += len(slots)
+        return step(fn, slots)
+
+    ex.admit, ex.step = counted_admit, counted_step
+    r = simulate(exp)
+    got = kops.launch_counts()
+    wall = time.perf_counter() - t0
+    log(f"[scheduler] archipelago, torch-batched continuous, minicpm-2b + "
+        f"mamba2-370m full width and depth, prompt {prompt_len}, gen "
+        f"{gen_len}, {rps} rps each for {duration} s: {r.n_completed}/"
+        f"{r.n_requests} requests, data plane {r.data_plane}; calibration "
+        f"{calib_s:.1f} s (kernel build {ex.build_seconds:.1f} s), serving "
+        f"run {r.wall_s:.1f} s, phase {wall:.1f} s; {smi}")
+    for cls, st in sorted(r.per_class.items()):
+        log(f"[scheduler] app {cls}: deadline met "
+            f"{st.deadline_met_frac}, latency p50 {st.p50 * 1e3:.1f} ms, p99 "
+            f"{st.p99 * 1e3:.1f} ms, cold starts {st.cold_starts} "
+            f"(simulated clock, advanced by measured device time)")
+    check_served("phase 8", r)
+    if r.data_plane != {"device": str(dev).split(":")[0],
+                        "batching": "continuous"}:
+        raise AssertionError(f"phase 8: data plane {r.data_plane}")
+    bc = r.backend_counters
+    if (sum(v["joins"] for v in runs.values()) != bc["n_prefill_batches"]
+            or sum(v["ticks"] for v in runs.values()) != bc["n_decode_ticks"]):
+        raise AssertionError(f"phase 8: per-function runs {runs} against "
+                             f"the batcher's {bc}")
+    # every bucket ran once in set-up and calib_runs times in calibration,
+    # join and step; then the serving run's joins and ticks
+    pre = len(ex.buckets()) * (1 + backend.calib_runs)
+    want = {"attention": chat_cfg.n_layers * (pre + runs["chat/gen"]["joins"]),
+            "decode_attention": chat_cfg.n_layers
+            * (pre + runs["chat/gen"]["ticks"]),
+            "ssd": ssm_cfg.n_layers * (pre + runs["ssm/gen"]["joins"])}
+    occupancy = {fn: v["slots"] / max(1, v["ticks"]) for fn, v in runs.items()}
+    log(f"[scheduler] per function {runs}; mean decode occupancy "
+        f"{occupancy}; launches {got}, expected {want}")
+    if got != want:
+        raise AssertionError(f"phase 8: kernel launches {got}, expected "
+                             f"{want}")
+    if min(occupancy.values()) <= 2:
+        raise AssertionError(f"phase 8: mean decode occupancy {occupancy} "
+                             f"not above 2")
+    out = {"result": r.detach_sim().to_dict(), "calibration_s": calib_s,
+           "build_s": ex.build_seconds, "phase_s": wall, "runs": runs,
+           "occupancy": occupancy, "launches": got,
+           "bucket_admit_s": {str(k): v for k, v in ex.bucket_admit_s.items()},
+           "bucket_step_s": {str(k): v for k, v in ex.bucket_step_s.items()}}
+    del backend, ex, exp
+
+    # mamba2-370m alone: every prefill (set-up, calibration, serving) runs
+    # the SSD scan in each of its layers
+    for tag, be in (("torch", TorchBackend(device=dev)),
+                    ("torch-batched windowed",
+                     BatchedTorchBackend(max_batch=8, device=dev))):
+        app = ServingApp("complete", {"ssm/gen": ServedModel(
+            ssm_cfg, prompt_len=prompt_len, gen_len=4)}, slack=1.2)
+        kops.reset_launch_counts()
+        t0 = time.perf_counter()
+        r = simulate(experiment(be, [app], 2.0, 4.0, drain=30.0))
+        got = kops.launch_counts()
+        ex = be.executor
+        prefills = len(ex._instances) * (1 + be.calib_runs) + ex.n_executions
+        want = {"attention": 0, "decode_attention": 0,
+                "ssd": ssm_cfg.n_layers * prefills}
+        log(f"[scheduler] {tag}, mamba2-370m, gen 4: {r.n_completed}/"
+            f"{r.n_requests} requests, {prefills} prefills, launches {got}, "
+            f"expected {want}; {time.perf_counter() - t0:.1f} s")
+        check_served(tag, r)
+        if got != want:
+            raise AssertionError(f"{tag}: kernel launches {got}, expected "
+                                 f"{want}")
+        out[tag] = {"result": r.detach_sim().to_dict(), "launches": got,
+                    "prefills": prefills}
+    return out
 
 
 def main() -> int:
@@ -618,6 +766,11 @@ def main() -> int:
                             for n, c, t in prof["top_host"]))
         del ex
         torch.cuda.empty_cache()
+
+    # -- 8. Archipelago: the control plane over the card ------------------------
+    report["scheduler"] = scheduler_phase(dev, get_config("minicpm-2b"),
+                                          get_config("mamba2-370m"), smi)
+    torch.cuda.empty_cache()
 
     # -- result -------------------------------------------------------------------
     # each kernel: its launches over all of serve() on its own path, and the

@@ -1,10 +1,12 @@
-"""Continuous batching on top of the asynchronous execution seam.
+"""Batching on top of the asynchronous execution seam.
 
-Copy of ``CompletionQueue``, ``ContinuousBatcher`` and ``pow2_bucket`` from
-``src/repro/core/backends.py:220-255, 377-560`` (the port imports nothing of
-``repro``).  The batcher decides when requests join and leave a running
-batch; the data plane (``serving.executor.ContinuousTorchExecutor``)
-supplies the ``admit`` / ``step`` / ``steps_for`` hooks.
+Copy of ``CompletionQueue``, ``BatchCoalescer``, ``ContinuousBatcher`` and
+``pow2_bucket`` from ``src/repro/core/backends.py:220-560`` (the port imports
+nothing of ``repro``).  The coalescer gathers whole requests into one padded
+execution (``serving.executor.BatchingTorchExecutor.run_batch``); the
+continuous batcher decides when requests join and leave a running batch, and
+its data plane (``serving.executor.ContinuousTorchExecutor``) supplies the
+``admit`` / ``step`` / ``steps_for`` hooks.
 """
 from __future__ import annotations
 
@@ -54,6 +56,127 @@ class CompletionQueue:
             done(exec_s)
 
 
+class BatchCoalescer:
+    """Per-function time/size-window batching on top of the async seam.
+
+    Invocations submitted for the same function while earlier ones are still
+    waiting are coalesced: the first submission opens a ``batch_window``
+    (sim seconds); the batch flushes when the window closes or as soon as
+    ``max_batch`` invocations have gathered.  ``run_batch(fn_name, invs)``
+    executes the whole batch ONCE and returns the shared runtime in seconds
+    — every member completes at ``flush_time + runtime`` (the batch moves at
+    the speed of the padded executable, not of its slowest member), with
+    completions delivered in ``inv_id`` order via :class:`CompletionQueue`.
+
+    A cold invocation (``delay`` = sandbox setup) enrolls only once its
+    setup has elapsed, so batches never start before their members could.
+    """
+
+    def __init__(self, env: "Env",
+                 run_batch: Callable[[str, List[Invocation]], float],
+                 batch_window: float = 0.005, max_batch: int = 8):
+        if max_batch < 1:
+            raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+        if batch_window < 0:
+            raise ValueError(
+                f"batch_window must be >= 0, got {batch_window}")
+        self.env = env
+        self.run_batch = run_batch
+        self.batch_window = batch_window
+        self.max_batch = max_batch
+        self._cq = CompletionQueue(env)
+        self._pending: Dict[str, List[Tuple[Invocation, DoneFn]]] = {}
+        # generation per function: a window-flush event is stale if an
+        # early (size-triggered) flush already took its batch
+        self._gen: Dict[str, int] = {}
+        # dead-member tombstones (core.fault worker crash): inv_ids dropped
+        # while still in their setup-delay deferral; consumed by _enroll
+        self._dropped: set = set()
+        # occupancy counters (surfaced through backend.counters())
+        self.n_batches = 0
+        self.n_batched_invocations = 0
+        self.n_batch_slots = 0          # sum of padded bucket sizes
+        self.max_occupancy = 0
+        self.n_dropped = 0
+
+    def submit(self, inv: Invocation, done: DoneFn, delay: float = 0.0
+               ) -> None:
+        if delay > 0.0:
+            self.env.call_after(delay, self._enroll, inv, done)
+        else:
+            self._enroll(inv, done)
+
+    def drop(self, inv_ids: List[int]) -> None:
+        """Purge dead members (their worker crashed) from the data plane.
+
+        Members still waiting in a window are removed before the flush, so
+        the batch that eventually runs contains only live invocations; a
+        window whose members ALL died flushes empty and is a no-op.  Members
+        whose setup delay has not elapsed are tombstoned and skipped at
+        enrollment.  Members already executing in a flushed batch cannot be
+        recalled — their completions fire and the scheduler's inflight guard
+        discards them (exactly-once accounting lives scheduler-side).
+        """
+        ids = set(inv_ids)
+        if not ids:
+            return
+        for fn, q in self._pending.items():
+            if any(inv.inv_id in ids for inv, _ in q):
+                kept = [(inv, d) for inv, d in q if inv.inv_id not in ids]
+                self.n_dropped += len(q) - len(kept)
+                ids -= {inv.inv_id for inv, _ in q}
+                self._pending[fn] = kept
+        # not pending: either in setup deferral (tombstone) or already
+        # flushed/complete (the stale tombstone is consumed by the inflight
+        # guard's silence — it never enrolls again, so it leaks at most one
+        # int per crash, bounded by inflight size)
+        self._dropped |= ids
+
+    def _enroll(self, inv: Invocation, done: DoneFn) -> None:
+        if inv.inv_id in self._dropped:
+            self._dropped.discard(inv.inv_id)
+            self.n_dropped += 1
+            return
+        q = self._pending.setdefault(inv.fn.name, [])
+        q.append((inv, done))
+        if len(q) >= self.max_batch:
+            self._flush(inv.fn.name, self._gen.get(inv.fn.name, 0))
+        elif len(q) == 1:
+            gen = self._gen.get(inv.fn.name, 0)
+            if self.batch_window > 0.0:
+                self.env.call_after(self.batch_window, self._flush,
+                                    inv.fn.name, gen)
+            else:
+                self._flush(inv.fn.name, gen)
+
+    def _flush(self, fn_name: str, gen: int) -> None:
+        if self._gen.get(fn_name, 0) != gen:
+            return                      # stale window: batch already ran
+        batch = self._pending.get(fn_name)
+        if not batch:
+            return
+        self._gen[fn_name] = gen + 1
+        self._pending[fn_name] = []
+        invs = [inv for inv, _ in batch]
+        runtime = self.run_batch(fn_name, invs)
+        k = len(batch)
+        self.n_batches += 1
+        self.n_batched_invocations += k
+        self.n_batch_slots += pow2_bucket(k)
+        if k > self.max_occupancy:
+            self.max_occupancy = k
+        for inv, done in sorted(batch, key=lambda p: p[0].inv_id):
+            self._cq.schedule(inv, runtime, done)
+
+    def counters(self) -> Dict[str, int]:
+        return {"n_batches": self.n_batches,
+                "n_batched_invocations": self.n_batched_invocations,
+                "n_batch_slots": self.n_batch_slots,
+                "max_batch_occupancy": self.max_occupancy,
+                "n_dropped_invocations": self.n_dropped}
+
+
+
 
 class ContinuousBatcher:
     """Step-granular *continuous* batching on top of the async seam.
@@ -70,8 +193,8 @@ class ContinuousBatcher:
     batch occupancy instead of request-window occupancy.
 
     The data plane supplies three hooks (see
-    ``serving.executor.ContinuousTorchExecutor`` for the real twin; the JAX
-    package's ``StubBatchedBackend(batching="continuous")`` is the scripted one):
+    ``serving.executor.ContinuousTorchExecutor`` for the real twin and
+    ``StubBatchedBackend(batching="continuous")`` for the scripted one):
 
     * ``admit(fn_name, invs, slots) -> seconds`` — batched prefill of the
       joiners into cache slots ``slots``; returns measured wall seconds.
@@ -233,7 +356,6 @@ class ContinuousBatcher:
                 "n_step_slots": self.n_step_slots,
                 "max_batch_occupancy": self.max_occupancy,
                 "n_dropped_invocations": self.n_dropped}
-
 
 
 def pow2_bucket(k: int) -> int:

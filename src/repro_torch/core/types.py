@@ -167,8 +167,8 @@ class Request:
     n_cold_starts: int = 0
     total_queuing_delay: float = 0.0
     sgs_id: Optional[int] = None   # which SGS served it (set by LBS routing)
-    # row index in a run's flat metrics columns (the JAX package's
-    # sim.metrics); -1 outside column-recording runs
+    # row index in the run's flat metrics columns (``sim.metrics``);
+    # -1 outside column-recording runs
     m_idx: int = -1
     # DAG-progress state owned by the serving scheduler (the set of
     # completed function names; a shared sentinel for single-function DAGs;
@@ -282,7 +282,7 @@ class Sandbox:
 # it inside its dispatch path, so a real backend can only run one invocation
 # at a time.  New backends implement the asynchronous ``SubmitFn`` seam
 # below; ``ExecuteFn`` hooks are adapted automatically
-# (the JAX package's ``core.backends.ExecutionBackend.bind``).
+# (``core.backends.ExecutionBackend.bind``).
 ExecuteFn = Callable[[Invocation], float]
 
 # Completion callback, provided by the scheduler per dispatched invocation.

@@ -25,12 +25,14 @@
 //   name; hd 32/72/96 are padded with zeros to 64/128 columns.  Loads are
 //   TMA copies: one 4-D tensor map per operand over the (B,S,H,hd) layout
 //   with its own strides, whose zero fill gives the rows past Sk and the
-//   padding columns.  One thread issues them; K/V tiles of 64 keys land in
-//   a four-stage ring, each stage completing on its mbarrier, so the next
-//   two tiles' loads overlap the current tile's products, with one CTA
-//   barrier per tile.  Each iteration issues S of tile j and P V of
-//   tile j - 1 together and runs the softmax of tile j while P V is on the
-//   tensor cores (FlashAttention-3's intra-warpgroup overlap).  The online
+//   padding columns.  Thread 0 issues them by predicated instructions that
+//   its whole warp runs (hopper.cuh), never behind a branch that splits a
+//   warp ahead of a wgmma.  K/V tiles of 64 keys land in a four-stage ring,
+//   each stage completing on its mbarrier, so the next two tiles' loads
+//   overlap the current tile's products, with one CTA barrier per tile.
+//   Each iteration issues S of tile j and P V of tile j - 1 together and
+//   runs the softmax of tile j while P V is on the tensor cores
+//   (FlashAttention-3's intra-warpgroup overlap).  The online
 //   softmax runs on the accumulator fragments (quad shuffles).  Dead tiles
 //   are skipped with _fa_kernel's tile test; only tiles that straddle the
 //   diagonal, the window edge or Sk are masked.  q tiles launch
@@ -43,6 +45,7 @@
 
 #include <cmath>
 
+#include "hopper.cuh"
 #include "tile.cuh"
 
 namespace {
@@ -241,6 +244,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 // --------------------------------------------------------------------------
 namespace wg {
 
+using namespace repro::hopper;
 using bf16 = __nv_bfloat16;
 constexpr int BQ = 128;     // q rows per CTA: two consumer warpgroups
 constexpr int BK = 64;      // keys per K/V tile
@@ -259,125 +263,6 @@ struct Cfg {
                               8 * (STAGES + 1);
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// mbarriers and TMA.  A tile lands in shared memory in 64-column (128-byte)
-// panels, panel p at +p*ROWS*128, row r at +r*128, its 16-byte chunk c at
-// chunk c ^ (r % 8): the 128-byte swizzle of the tensor maps, which the
-// wgmma descriptors name.  Rows past the tensor's end and columns past hd
-// are zero-filled by the TMA unit.
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nLAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-// one box of the 4-D map (hd, heads, sequence, batch) at (c0, c1, c2, c3),
-// loaded into shared memory, or stored from it (clipped to the tensor)
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int c0, int c1, int c2, int c3,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3), "r"(bar)
-      : "memory");
-}
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
-                                          int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
-      " [%0, {%1, %2, %3, %4}], [%5];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(src)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-#define R8(i)                                                            \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),            \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d (64x64 f32 fragment) (+)= A (64x16, smem, K-major) * B (16x64 as 64
-// rows of K, smem, K-major)^T; d is overwritten when acc == 0
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                             uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : R8(0), R8(8), R8(16), R8(24)
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-// d (64xN f32 fragment) += A (64x16 bf16, registers) * B (16xN, smem,
-// MN-major: transpose bit set)
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : R8(0), R8(8), R8(16), R8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : R8(0), R8(8), R8(16), R8(24), R8(32), R8(40), R8(48), R8(56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-#undef R8
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&t);
-}
-
 // O += P V over one tile: P's fragment for keys 16kk..16kk+15 is
 // pk[4kk .. 4kk+3]; V at va, MN-major
 template <int N>
@@ -388,7 +273,7 @@ __device__ __forceinline__ void issue_pv(float (&acc)[N],
   for (int kk = 0; kk < BK / 16; ++kk) {
     const uint32_t pa[4] = {pk[4 * kk], pk[4 * kk + 1], pk[4 * kk + 2],
                             pk[4 * kk + 3]};
-    wgmma_rs(acc, pa, make_desc(va + kk * (16 * 128), BK * 128, 1024));
+    wgmma_rs<1>(acc, pa, make_desc(va + kk * (16 * 128), BK * 128, 1024));
   }
   wgmma_commit();
 }
@@ -448,33 +333,32 @@ __global__ void __launch_bounds__(NT, HD <= 64 ? 2 : 1)
   if (window > 0)
     while (ik_lo < ik_hi && first_q - (ik_lo * BK + BK - 1) >= window) ++ik_lo;
 
-  // one thread issues every load: Q once, then each K/V tile into its
-  // stage, completing on that stage's barrier
+  // Thread 0 issues every load: Q once, then each K/V tile into its stage,
+  // completing on that stage's barrier.  The helpers run on whole warps and
+  // `on` predicates the copy (hopper.cuh): no branch splits warp 0 ahead
+  // of a wgmma.
+  const bool lead = tid == 0;
   const uint32_t qbar = bars + 8 * STAGES;
-  auto load_kv = [&](int ik, int stage) {
+  auto load_kv = [&](int ik, int stage, bool on) {
     const uint32_t bar = bars + 8 * stage;
-    mbar_expect_tx(bar, 2 * C::KV_BYTES);
+    mbar_expect_tx(bar, 2 * C::KV_BYTES, on);
 #pragma unroll
     for (int p = 0; p < C::NP; ++p) {
-      tma_load(sK + stage * C::KV_BYTES + p * (BK * 128), &tk, 64 * p, hk,
-               ik * BK, b, bar);
-      tma_load(sV + stage * C::KV_BYTES + p * (BK * 128), &tv, 64 * p, hk,
-               ik * BK, b, bar);
+      tma_load4(sK + stage * C::KV_BYTES + p * (BK * 128), &tk, 64 * p, hk,
+                ik * BK, b, bar, on);
+      tma_load4(sV + stage * C::KV_BYTES + p * (BK * 128), &tv, 64 * p, hk,
+                ik * BK, b, bar, on);
     }
   };
-  if (tid == 0) {
-    for (int i = 0; i <= STAGES; ++i) mbar_init(bars + 8 * i, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  for (int i = 0; i <= STAGES; ++i) mbar_init(bars + 8 * i, 1, lead);
+  fence_mbar_init();
   __syncthreads();
-  if (tid == 0) {
-    mbar_expect_tx(qbar, C::Q_BYTES);
+  mbar_expect_tx(qbar, C::Q_BYTES, lead);
 #pragma unroll
-    for (int p = 0; p < C::NP; ++p)
-      tma_load(sQ + p * (BQ * 128), &tq, 64 * p, h, q0, b, qbar);
-    for (int t = 0; t < AHEAD && ik_lo + t < ik_hi; ++t)
-      load_kv(ik_lo + t, t);
-  }
+  for (int p = 0; p < C::NP; ++p)
+    tma_load4(sQ + p * (BQ * 128), &tq, 64 * p, h, q0, b, qbar, lead);
+  for (int t = 0; t < AHEAD && ik_lo + t < ik_hi; ++t)
+    load_kv(ik_lo + t, t, lead);
   mbar_wait(qbar, 0);
 
   float acc[HDP / 2];
@@ -496,7 +380,11 @@ __global__ void __launch_bounds__(NT, HD <= 64 ? 2 : 1)
     // every thread is done with tile ik - 2, whose stage the load refills
     __syncthreads();
     const int ahead = ik + AHEAD;
-    if (tid == 0 && ahead < ik_hi) load_kv(ahead, (ahead - ik_lo) % STAGES);
+    // warp 0 alone, all its lanes together: the branch is uniform across
+    // each warp, so it splits none, and spares the other seven warps the
+    // issue (run by all 256 threads it cost 0.07 us a tile, PERF.md)
+    if (tid < 32)
+      load_kv(ahead, (ahead - ik_lo) % STAGES, lead && ahead < ik_hi);
 
     const bool pv = ik > ik_lo;
     wgmma_fence();
@@ -506,7 +394,8 @@ __global__ void __launch_bounds__(NT, HD <= 64 ? 2 : 1)
                           (kk & 3) * 32;
       const uint32_t ka = sK + stage * C::KV_BYTES + (kk >> 2) * (BK * 128) +
                           (kk & 3) * 32;
-      wgmma_ss_n64(s, make_desc(qa, 16, 1024), make_desc(ka, 16, 1024), kk);
+      wgmma_ss<0, 0>(s, make_desc(qa, 16, 1024), make_desc(ka, 16, 1024),
+                     kk);
     }
     wgmma_commit();
     if (pv) {
@@ -597,15 +486,15 @@ __global__ void __launch_bounds__(NT, HD <= 64 ? 2 : 1)
                  "r"(pack_bf16(acc[i] * dn, acc[i + 1] * dn))
                  : "memory");
   }
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  fence_async_smem();
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wgi) : "memory");
-  if ((tid & 127) == 0) {
+  const bool wg_lead = (tid & 127) == 0;
 #pragma unroll
-    for (int p = 0; p < C::NP; ++p)
-      tma_store(&to, so + p * (BQ * 128), 64 * p, h, q0 + wgi * 64, b);
-    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-  }
+  for (int p = 0; p < C::NP; ++p)
+    tma_store4(&to, so + p * (BQ * 128), 64 * p, h, q0 + wgi * 64, b,
+               wg_lead);
+  bulk_commit(wg_lead);
+  bulk_wait_read(wg_lead);
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,

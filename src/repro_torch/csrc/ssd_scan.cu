@@ -66,7 +66,7 @@
 //     two slots, which double as the exchange buffer of phase 2.  y leaves
 //     by a TMA store.  Thread 0 issues every copy, but by a predicated
 //     instruction that the whole warpgroup runs, never behind a branch that
-//     splits warp 0 (below).
+//     splits warp 0 (the helpers of hopper.cuh).
 //   - cum is a warp-level scan; dt of the next chunk is prefetched into
 //     registers.  About 104 KB of shared memory at N = 128: two CTAs an SM.
 // * float32, ssd_kernel_f32: the port's first kernel, unchanged.  Full-f32
@@ -75,6 +75,7 @@
 
 #include <cooperative_groups.h>
 
+#include "hopper.cuh"
 #include "tile.cuh"
 
 namespace {
@@ -323,6 +324,7 @@ int dispatch_n(int N, const void* x, const void* dt, const void* A,
 // --------------------------------------------------------------------------
 namespace wg {
 
+using namespace repro::hopper;
 namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
 constexpr int T = 64;        // rows of a chunk: the wgmma M
@@ -351,93 +353,6 @@ struct Cfg {
   static_assert(NT * (NP / 2) * 4 == 2 * BC_BYTES, "exchange = C ring");
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Thread 0 alone issues the kernel's TMA copies, their mbarrier arrivals
-// and the bulk waits, but no branch singles it out: every lane of the
-// warpgroup runs these helpers and `on` predicates the instruction alone.
-// A branch taken by one lane left the warp split across the warpgroup's
-// .aligned wgmma instructions, wherever the compiler chose to rejoin it,
-// and hung the kernel at R > 1 on the H100 (PERF.md, section 6).
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count, bool on) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n"
-      "@p mbarrier.init.shared::cta.b64 [%0], %1;\n}\n" ::"r"(bar),
-      "r"(count), "r"((int)on)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes,
-                                               bool on) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n"
-      "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n}\n" ::
-          "r"(bar), "r"(bytes), "r"((int)on)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nLAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-// generic-proxy shared-memory accesses before async-proxy ones (TMA, wgmma)
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void tma_load4(uint32_t dst, const CUtensorMap* map,
-                                          int c0, int c1, int c2, int c3,
-                                          uint32_t bar, bool on) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %7, 0;\n"
-      "@p cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n}\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3), "r"(bar), "r"((int)on)
-      : "memory");
-}
-__device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* map,
-                                          int c0, int c1, int c2,
-                                          uint32_t bar, bool on) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
-      "@p cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n}\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(bar), "r"((int)on)
-      : "memory");
-}
-// the store, then its commit to a bulk group
-__device__ __forceinline__ void tma_store4(const CUtensorMap* map,
-                                           uint32_t src, int c0, int c1,
-                                           int c2, int c3, bool on) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
-      "@p cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
-      " [%0, {%1, %2, %3, %4}], [%5];\n"
-      "@p cp.async.bulk.commit_group;\n}\n" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(src), "r"((int)on)
-      : "memory");
-}
-// the bulk stores have read their shared memory
-__device__ __forceinline__ void bulk_wait_read(bool on) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %0, 0;\n"
-      "@p cp.async.bulk.wait_group.read 0;\n}\n" ::"r"((int)on)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
 // a K-major tile (rows along M or N, K contiguous): k-step kk of 16
 __device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
   return make_desc(tile + (kk >> 2) * (T * 128) + (kk & 3) * 32, 16, 1024);
@@ -447,78 +362,6 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
   return make_desc(tile + kk * (16 * 128), T * 128, 1024);
 }
 
-// The .aligned wgmma instructions need every lane of the warp to execute
-// them together.  The lanes of a warp may leave an mbarrier spin or a
-// lane-guarded load apart, so the fence and the wait first bring them
-// together.
-__device__ __forceinline__ void wgmma_fence() {
-  __syncwarp();
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  __syncwarp();
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-#define R8(i)                                                            \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),            \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d (64x64 f32) (+)= A (64x16, smem) * B (16x64, smem); TA / TB: the
-// operand is MN-major (transpose bit); d is overwritten when acc == 0
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
-                                         uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, %32, %33, p, 1, 1, %35, %36;\n}\n"
-      : R8(0), R8(8), R8(16), R8(24)
-      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
-}
-
-// d (64xN f32) += A (64x16 bf16, registers) * B (16xN, smem)
-template <int TB>
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : R8(0), R8(8), R8(16), R8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
-        "n"(TB));
-}
-template <int TB>
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a,
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-      : R8(0), R8(8), R8(16), R8(24), R8(32), R8(40), R8(48), R8(56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
-        "n"(TB));
-}
-#undef R8
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&t);
-}
 // v0, v1 as bf16 pairs hi and lo with hi + lo = v to about 16 bits
 __device__ __forceinline__ void split_bf16(float v0, float v1, uint32_t& hi,
                                            uint32_t& lo) {
@@ -606,7 +449,7 @@ __global__ void __launch_bounds__(NT, 2)
   };
 
   for (int i = 0; i < 4; ++i) mbar_init(bars + 8 * i, 1, lead);
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  fence_mbar_init();
   __syncthreads();
   for (int t = 0; t < 2 && t < items; ++t) load_xb(t);
   // with no phase 1 the C ring holds no exchange: load C at once
@@ -854,6 +697,7 @@ __global__ void __launch_bounds__(NT, 2)
     fence_async_smem();
     end_item(t);
     tma_store4(&ty, ysm, 0, h, (c0 + u) * T, b, lead);
+    bulk_commit(lead);
   }
   // the last store has read its staging tile before the CTA's shared
   // memory goes

@@ -15,11 +15,12 @@ kernel.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 
 from . import _build
+from ..device import sm_count
 from .ref import decode_attention_ref
 
 HEAD_DIMS = (32, 64, 72, 96, 128)
@@ -30,8 +31,6 @@ MAX_GROUP_WIDTH = 1024      # G * hd: the kernel's per-lane registers
 SPLIT_TILE = 32             # the kernel's keys per tile: splits are multiples
 MAX_SPLIT = 8               # CTAs per cluster that every Hopper card takes
 CTAS_PER_SM = 4             # the plan aims at this many CTAs per SM
-
-_sm_counts: Dict[int, int] = {}     # device index -> streaming multiprocessors
 
 
 def split_plan(B: int, Hkv: int, L: int, sm_count: int) -> Tuple[int, int]:
@@ -47,15 +46,6 @@ def split_plan(B: int, Hkv: int, L: int, sm_count: int) -> Tuple[int, int]:
     n = max(1, min(MAX_SPLIT, want, tiles))
     chunk = -(-tiles // n) * SPLIT_TILE
     return max(1, -(-L // chunk)), chunk
-
-
-def _sm_count(device: torch.device) -> int:
-    idx = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    if idx not in _sm_counts:
-        _sm_counts[idx] = torch.cuda.get_device_properties(
-            idx).multi_processor_count
-    return _sm_counts[idx]
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -115,7 +105,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    n_split, chunk = split_plan(B, Hkv, L, _sm_count(q.device))
+    n_split, chunk = split_plan(B, Hkv, L, sm_count(q.device))
     fn = _build.launcher("decode_attention", _ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -6,8 +6,9 @@ far: one served model under continuous batching.  ``serve`` calibrates a
 then drives seeded Poisson arrivals through ``SimEnv`` +
 ``ContinuousBatcher``.  The measured wall seconds of every join and step
 advance the simulated clock, as in the JAX package's batched backend, so
-latencies are device time as the requests would have seen it.  There is no
-LBS/SGS in front yet (ROADMAP, Queue 1).
+latencies are device time as the requests would have seen it.  No LBS/SGS
+stands in front: serving under Archipelago's scheduler goes through
+``sim.simulate`` with ``backend="torch-batched"`` (README).
 """
 from __future__ import annotations
 

@@ -1,8 +1,8 @@
-"""Minimal deterministic discrete-event engine (the ``Env`` the batcher runs on).
+"""Minimal deterministic discrete-event engine implementing ``core.sgs.Env``.
 
 Copy of ``src/repro/sim/engine.py`` (the port imports nothing of ``repro``),
-without the run loops the batcher does not use (``run_until``,
-``run_until_before``, ``every``): they come with the control plane.
+without ``run_until_before``, which only the JAX package's sharded core
+(``sim/shard.py``, not ported) uses.
 """
 from __future__ import annotations
 
@@ -44,6 +44,20 @@ class SimEnv:
         heapq.heappush(self._events, (t, self._seq_next(), fn, args))
 
     # -- driving -----------------------------------------------------------------
+    def run_until(self, t_end: float) -> None:
+        events = self._events
+        pop = heapq.heappop
+        n = 0
+        try:
+            while events and events[0][0] <= t_end:
+                t, _, fn, args = pop(events)
+                self._now = t
+                n += 1
+                fn(*args)
+        finally:
+            self.n_events += n
+        self._now = max(self._now, t_end)
+
     def run(self) -> None:
         events = self._events
         pop = heapq.heappop
@@ -56,3 +70,15 @@ class SimEnv:
                 fn(*args)
         finally:
             self.n_events += n
+
+    def every(self, interval: float, fn: Callable[[], None],
+              until: float = float("inf")) -> None:
+        """Recurring callback helper (estimation ticks, scaling passes)."""
+
+        def tick():
+            if self._now > until:
+                return
+            fn()
+            self.call_after(interval, tick)
+
+        self.call_after(interval, tick)

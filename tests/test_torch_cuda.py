@@ -263,3 +263,62 @@ def test_mamba_decoder_on_the_card_matches_the_cpu(cuda):
     after = ops.launch_counts()
     assert after["ssd"] - before["ssd"] == cfg.n_layers
     assert after["attention"] == before["attention"]
+
+
+@pytest.mark.parametrize("src,kernel", [("flash_attention", "fa_kernel_wgmma"),
+                                        ("ssd_scan", "ssd_kernel_wgmma")])
+def test_bf16_kernels_run_their_products_on_the_tensor_cores(cuda, src,
+                                                              kernel):
+    """The bf16 flash and SSD kernels, built from csrc with the shared
+    ``hopper.cuh`` helpers, hold HGMMA instructions in their SASS."""
+    import shutil
+    import subprocess
+
+    from repro_torch.kernels import _build
+    _build.build([src])
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(_build.library_path(src))],
+                          capture_output=True, text=True, check=True).stdout
+    fn, hgmma = None, 0
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1]
+        elif fn and kernel in fn and "HGMMA" in line:
+            hgmma += 1
+    assert hgmma > 0
+
+
+@pytest.mark.parametrize("arch", ["minicpm-2b", "mamba2-370m"])
+def test_simulate_torch_batched_on_the_card(cuda, arch):
+    """Archipelago over the card: the reduced model served through
+    ``simulate`` with continuous ``torch-batched``; every request completes
+    once, and each kernel launched once per layer in every join (flash,
+    SSD) or decode tick (decode), set-up and calibration included."""
+    from repro_torch.core import BatchedTorchBackend, ClusterConfig
+    from repro_torch.serving import ServedModel, ServingApp
+    from repro_torch.sim import Experiment, simulate
+    cfg = get_config(arch, reduced=True)
+    backend = BatchedTorchBackend(max_batch=4, batching="continuous")
+    ops.reset_launch_counts()
+    r = simulate(Experiment(
+        stack="archipelago", backend=backend,
+        workload_factory="serving_apps",
+        workload_kwargs=dict(apps=[ServingApp("app", {"gen": ServedModel(
+            cfg, prompt_len=32, gen_len=4)})], duration=1.0, rps=40.0),
+        cluster=ClusterConfig(n_sgs=1, workers_per_sgs=2, cores_per_worker=4,
+                              pool_mem_mb=2048.0), drain=20.0))
+    got = ops.launch_counts()
+    acc = r.accounting
+    assert r.n_completed == r.n_requests > 0
+    assert acc["lost"] == 0 and acc["duplicate_completions"] == 0
+    assert r.data_plane == {"device": "cuda", "batching": "continuous"}
+    bc = r.backend_counters
+    assert bc["n_joins"] == r.n_requests
+    # every bucket once in set-up and calib_runs times in calibration
+    pre = len(backend.executor.buckets()) * (1 + backend.calib_runs)
+    joins = cfg.n_layers * (pre + bc["n_prefill_batches"])
+    ticks = cfg.n_layers * (pre + bc["n_decode_ticks"])
+    want = ({"attention": joins, "decode_attention": ticks, "ssd": 0}
+            if arch == "minicpm-2b"
+            else {"attention": 0, "decode_attention": 0, "ssd": joins})
+    assert got == want

@@ -11,10 +11,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import BatchedTorchBackend, TorchBackend  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import init_cache, init_params  # noqa: E402
-from repro_torch.serving import (ContinuousTorchExecutor,  # noqa: E402
-                                 ServedModel)
+from repro_torch.serving import (BatchingTorchExecutor,  # noqa: E402
+                                 ContinuousTorchExecutor, ServedModel,
+                                 TorchModelExecutor)
 
 ROOT = Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
@@ -25,6 +27,9 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     code = ("import sys\n"
             "import repro_torch, repro_torch.launch.serve\n"
             "import repro_torch.kernels, repro_torch.models\n"
+            "import repro_torch.core, repro_torch.sim, repro_torch.serving\n"
+            "from repro_torch.sim import get_workload_factory\n"
+            "get_workload_factory('serving_apps')\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n"
@@ -56,8 +61,13 @@ def test_entry_points_refuse_to_fall_back_without_cuda(monkeypatch):
         init_params(cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         init_cache(cfg, 1, 8)
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        ContinuousTorchExecutor({"f": ServedModel(cfg)})
+    for executor in (ContinuousTorchExecutor, TorchModelExecutor,
+                     BatchingTorchExecutor):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            executor({"f": ServedModel(cfg)})
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve(cfg, n_requests=1, rps=1.0, prompt_len=4, gen_len=1,
               max_batch=1)
+    for backend in (TorchBackend, BatchedTorchBackend):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            backend()
