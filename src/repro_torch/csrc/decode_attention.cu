@@ -29,6 +29,8 @@
 //   16-byte cp.async copies in the input's dtype (not widened), so three
 //   tiles are in flight while one is scored.  The ring is small (32 KB at
 //   hd 64 in bf16), so six CTAs fit on an SM and batch 8 runs in one wave.
+//   At hd 256 in float32 four stages would take 256 KB, so that instance
+//   keeps three (192 KB).
 // * Scores.  Each of the 8 warps owns 4 keys of a tile and runs its own
 //   online softmax: lanes span the head dim (two elements each), a shuffle
 //   reduction gives each key's score, and all G query rows share the K/V
@@ -45,7 +47,6 @@ using repro::NEG_INF;
 constexpr int BK = 32;      // keys per tile
 constexpr int NT = 256;     // threads per CTA (8 warps)
 constexpr int NW = NT / 32;
-constexpr int STAGES = 4;   // K/V ring depth
 constexpr int KG = 4;       // keys a warp scores together
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -54,6 +55,7 @@ template <typename T, int HD, int GC>
 struct Cfg {
   static constexpr int NCH = (HD + 63) / 64;     // element pairs per lane
   static constexpr int TILE = BK * HD * (int)sizeof(T);
+  static constexpr int STAGES = 8 * TILE <= 128 * 1024 ? 4 : 3;  // ring depth
   static constexpr int RING = STAGES * 2 * TILE;
   static constexpr int WPART = NW * (2 * GC + GC * HD) * 4;  // warps' partials
   static constexpr int PART = (2 * GC + GC * HD) * 4;        // the CTA's
@@ -107,7 +109,7 @@ __global__ void __launch_bounds__(NT)
                T* __restrict__ o, int L, int Hq, int Hkv, int chunk,
                float scale_log2) {
   using C = Cfg<T, HD, GC>;
-  constexpr int NCH = C::NCH;
+  constexpr int NCH = C::NCH, STAGES = C::STAGES;
   constexpr int CPR = HD * (int)sizeof(T) / 16;  // 16-byte chunks per row
   extern __shared__ __align__(16) uint8_t smem[];
   float* part = reinterpret_cast<float*>(smem + C::SCRATCH);  // m, l, acc
@@ -368,6 +370,7 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v,
     case 72: return dispatch_g<T, 72>(G, q, k, v, vlen, o, B, L, Hq, Hkv, n_split, chunk, s);
     case 96: return dispatch_g<T, 96>(G, q, k, v, vlen, o, B, L, Hq, Hkv, n_split, chunk, s);
     case 128: return dispatch_g<T, 128>(G, q, k, v, vlen, o, B, L, Hq, Hkv, n_split, chunk, s);
+    case 256: return dispatch_g<T, 256>(G, q, k, v, vlen, o, B, L, Hq, Hkv, n_split, chunk, s);
     default: return -1;
   }
 }

@@ -22,7 +22,13 @@
 //   up with the A-operand fragment, as in FlashAttention-3) and V in shared
 //   memory, MN-major (transpose bit).  Tiles sit in shared memory as bf16 in
 //   64-column (128-byte) panels with the 128-byte swizzle the descriptors
-//   name; hd 32/72/96 are padded with zeros to 64/128 columns.  Loads are
+//   name; hd 32/72/96 are padded with zeros to 64/128 columns.  At hd 256
+//   (gemma3) a 128-row CTA would need 64 KB of Q and 64 KB of K/V a stage
+//   and 128 output registers a thread, so that instance splits the output
+//   instead: its two warpgroups share one 64-row q tile, each computes the
+//   whole S = Q K^T (the softmax needs every column of a row) and owns 128
+//   of the 256 output columns of P V; 32 KB of Q and a three-stage ring of
+//   64 KB stages fit the 227 KB a CTA may have.  Loads are
 //   TMA copies: one 4-D tensor map per operand over the (B,S,H,hd) layout
 //   with its own strides, whose zero fill gives the rows past Sk and the
 //   padding columns.  Thread 0 issues them by predicated instructions that
@@ -249,13 +255,18 @@ using bf16 = __nv_bfloat16;
 constexpr int BQ = 128;     // q rows per CTA: two consumer warpgroups
 constexpr int BK = 64;      // keys per K/V tile
 constexpr int NT = 256;
-constexpr int STAGES = 4;   // K/V ring depth
-constexpr int AHEAD = STAGES - 2;  // tiles loading while one is in use
 
 template <int HD>
 struct Cfg {
-  static constexpr int HDP = HD <= 64 ? 64 : 128;  // padded to whole panels
-  static constexpr int Q_BYTES = BQ * HDP * 2;
+  // padded to whole panels
+  static constexpr int HDP = HD <= 64 ? 64 : HD <= 128 ? 128 : 256;
+  // SPLIT: the warpgroups share 64 q rows and split the output columns
+  static constexpr bool SPLIT = HDP > 128;
+  static constexpr int ROWS = SPLIT ? BQ / 2 : BQ;   // q rows per CTA
+  static constexpr int OUT = SPLIT ? HDP / 2 : HDP;  // a warpgroup's columns
+  static constexpr int STAGES = SPLIT ? 3 : 4;       // K/V ring depth
+  static constexpr int AHEAD = STAGES - 2;  // tiles loading while one is used
+  static constexpr int Q_BYTES = ROWS * HDP * 2;
   static constexpr int KV_BYTES = BK * HDP * 2;
   static constexpr int NP = HDP / 64;              // 64-column panels
   // +1024: the base is rounded up to the swizzle atom; then the barriers
@@ -297,7 +308,7 @@ __device__ __forceinline__ float quad_sum(float x) {
 // warp w = t/32, lane; register i holds row 16w + lane/4 + 8*((i>>1)&1),
 // column 8*(i/4) + 2*(lane%4) + (i&1).
 // Two CTAs an SM where the 128-register budget holds both accumulators
-// (hd <= 64); one at hd 72..128, whose O accumulator alone takes 64.
+// (hd <= 64); one at hd 72..256, whose O accumulator alone takes 64.
 template <int HD>
 __global__ void __launch_bounds__(NT, HD <= 64 ? 2 : 1)
     fa_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
@@ -307,7 +318,8 @@ __global__ void __launch_bounds__(NT, HD <= 64 ? 2 : 1)
                     int Hq, int Hkv, int causal, int window,
                     float scale_log2) {
   using C = Cfg<HD>;
-  constexpr int HDP = C::HDP;
+  constexpr int STAGES = C::STAGES, AHEAD = C::AHEAD;
+  constexpr int ROWS = C::ROWS;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base;
@@ -319,12 +331,13 @@ __global__ void __launch_bounds__(NT, HD <= 64 ? 2 : 1)
   const int iq = gridDim.z - 1 - blockIdx.z;           // heaviest first
   const int hk = h / (Hq / Hkv);
   const int tid = threadIdx.x;
-  const int wgi = tid >> 7;                            // warpgroup: rows 64*wgi
+  const int wgi = tid >> 7;       // warpgroup: rows 64*wgi, or columns
   const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int wrow = C::SPLIT ? 0 : wgi * 64;           // its first q row
 
-  const int q0 = iq * BQ;
+  const int q0 = iq * ROWS;
   const int first_q = q0 + (Sk - Sq);
-  const int last_q = first_q + BQ - 1;
+  const int last_q = first_q + ROWS - 1;
   const int nk = (Sk + BK - 1) / BK;
   // the tile-skip test of _fa_kernel: live tiles are [ik_lo, ik_hi)
   int ik_hi = nk;
@@ -356,16 +369,16 @@ __global__ void __launch_bounds__(NT, HD <= 64 ? 2 : 1)
   mbar_expect_tx(qbar, C::Q_BYTES, lead);
 #pragma unroll
   for (int p = 0; p < C::NP; ++p)
-    tma_load4(sQ + p * (BQ * 128), &tq, 64 * p, h, q0, b, qbar, lead);
+    tma_load4(sQ + p * (ROWS * 128), &tq, 64 * p, h, q0, b, qbar, lead);
   for (int t = 0; t < AHEAD && ik_lo + t < ik_hi; ++t)
     load_kv(ik_lo + t, t, lead);
   mbar_wait(qbar, 0);
 
-  float acc[HDP / 2];
+  float acc[C::OUT / 2];
 #pragma unroll
-  for (int i = 0; i < HDP / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < C::OUT / 2; ++i) acc[i] = 0.f;
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;  // rows r, r+8
-  const int qp0 = first_q + wgi * 64 + warp * 16 + (lane >> 2);
+  const int qp0 = first_q + wrow + warp * 16 + (lane >> 2);
   const int qp1 = qp0 + 8;
 
   // Each iteration issues S = Q K^T of tile ik and P V of tile ik - 1
@@ -389,8 +402,8 @@ __global__ void __launch_bounds__(NT, HD <= 64 ? 2 : 1)
     const bool pv = ik > ik_lo;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < HDP / 16; ++kk) {
-      const uint32_t qa = sQ + (kk >> 2) * (BQ * 128) + wgi * (64 * 128) +
+    for (int kk = 0; kk < C::HDP / 16; ++kk) {
+      const uint32_t qa = sQ + (kk >> 2) * (ROWS * 128) + wrow * 128 +
                           (kk & 3) * 32;
       const uint32_t ka = sK + stage * C::KV_BYTES + (kk >> 2) * (BK * 128) +
                           (kk & 3) * 32;
@@ -398,9 +411,11 @@ __global__ void __launch_bounds__(NT, HD <= 64 ? 2 : 1)
                      kk);
     }
     wgmma_commit();
+    // this warpgroup's output panels of V: all, or its half
+    const uint32_t vcol = C::SPLIT ? wgi * (C::OUT / 64) * (BK * 128) : 0;
     if (pv) {
       issue_pv(acc, pk, sV + (stage == 0 ? STAGES - 1 : stage - 1) *
-                                 C::KV_BYTES);
+                                 C::KV_BYTES + vcol);
       wgmma_wait<1>();               // S has landed; P V may still run
     } else {
       wgmma_wait<0>();
@@ -457,30 +472,35 @@ __global__ void __launch_bounds__(NT, HD <= 64 ? 2 : 1)
     l1 = l1 * a1 + rs1;
     wgmma_wait<0>();                 // P V of tile ik - 1 is in acc
 #pragma unroll
-    for (int i = 0; i < HDP / 2; ++i) acc[i] *= (i & 2) ? a1 : a0;
+    for (int i = 0; i < C::OUT / 2; ++i) acc[i] *= (i & 2) ? a1 : a0;
     // P's A-operand fragment for keys 16kk..16kk+15 is s[8kk .. 8kk+7]
 #pragma unroll
     for (int i = 0; i < BK / 4; ++i) pk[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
   }
   if (ik_hi > ik_lo) {
     const int last = (ik_hi - 1 - ik_lo) % STAGES;
+    const uint32_t vcol = C::SPLIT ? wgi * (C::OUT / 64) * (BK * 128) : 0;
     wgmma_fence();
-    issue_pv(acc, pk, sV + last * C::KV_BYTES);
+    issue_pv(acc, pk, sV + last * C::KV_BYTES + vcol);
     wgmma_wait<0>();
   }
+  // split: the other warpgroup reads every row of Q until its last S
+  if (C::SPLIT) __syncthreads();
 
-  // O / l into this warpgroup's rows of the Q region (its last S has been
-  // read), in the swizzled panel layout of the tensor maps; then one TMA
-  // store a panel, which drops the rows past Sq and the columns past hd
+  // O / l into this warpgroup's rows (or columns) of the Q region (its
+  // last S has been read), in the swizzled panel layout of the tensor
+  // maps; then one TMA store a panel, which drops the rows past Sq and the
+  // columns past hd
   const float d0 = 1.f / fmaxf(quad_sum(l0), 1e-30f);
   const float d1 = 1.f / fmaxf(quad_sum(l1), 1e-30f);
-  const uint32_t so = sQ + wgi * (64 * 128);
+  const int col0 = C::SPLIT ? wgi * C::OUT : 0;       // its first column
+  const uint32_t so = sQ + wrow * 128;
 #pragma unroll
-  for (int i = 0; i < HDP / 2; i += 2) {
+  for (int i = 0; i < C::OUT / 2; i += 2) {
     const int r = warp * 16 + (lane >> 2) + ((i & 2) ? 8 : 0);
-    const int col = 8 * (i >> 2) + 2 * (lane & 3);
+    const int col = col0 + 8 * (i >> 2) + 2 * (lane & 3);
     const float dn = (i & 2) ? d1 : d0;
-    const uint32_t addr = so + (col >> 6) * (BQ * 128) + r * 128 +
+    const uint32_t addr = so + (col >> 6) * (ROWS * 128) + r * 128 +
                           ((((col & 63) >> 3) ^ (r & 7)) << 4) + (col & 7) * 2;
     asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr),
                  "r"(pack_bf16(acc[i] * dn, acc[i + 1] * dn))
@@ -490,8 +510,8 @@ __global__ void __launch_bounds__(NT, HD <= 64 ? 2 : 1)
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wgi) : "memory");
   const bool wg_lead = (tid & 127) == 0;
 #pragma unroll
-  for (int p = 0; p < C::NP; ++p)
-    tma_store4(&to, so + p * (BQ * 128), 64 * p, h, q0 + wgi * 64, b,
+  for (int p = col0 / 64; p < (col0 + C::OUT) / 64; ++p)
+    tma_store4(&to, so + p * (ROWS * 128), 64 * p, h, q0 + wrow, b,
                wg_lead);
   bulk_commit(wg_lead);
   bulk_wait_read(wg_lead);
@@ -543,7 +563,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Sk, int Hq, int Hkv, int causal, int window,
            cudaStream_t stream) {
   CUtensorMap tq, tk, tv, to;
-  if (!make_map(&tq, q, HD, Hq, Sq, B, BQ) ||
+  if (!make_map(&tq, q, HD, Hq, Sq, B, Cfg<HD>::ROWS) ||
       !make_map(&tk, k, HD, Hkv, Sk, B, BK) ||
       !make_map(&tv, v, HD, Hkv, Sk, B, BK) ||
       !make_map(&to, o, HD, Hq, Sq, B, BQ / 2))
@@ -553,7 +573,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
       fa_kernel_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(Hq, B, (Sq + BQ - 1) / BQ);
+  const dim3 grid(Hq, B, (Sq + Cfg<HD>::ROWS - 1) / Cfg<HD>::ROWS);
   fa_kernel_wgmma<HD><<<grid, NT, bytes, stream>>>(
       tq, tk, tv, to, Sq, Sk, Hq, Hkv, causal, window,
       (float)(1.4426950408889634 / std::sqrt((double)HD)));  // log2(e)/sqrt
@@ -578,6 +598,7 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
     REPRO_FA_CASE(72)
     REPRO_FA_CASE(96)
     REPRO_FA_CASE(128)
+    REPRO_FA_CASE(256)
     default: return -1;
   }
 #undef REPRO_FA_CASE

@@ -23,7 +23,7 @@ from . import _build
 from ..device import sm_count
 from .ref import decode_attention_ref
 
-HEAD_DIMS = (32, 64, 72, 96, 128)
+HEAD_DIMS = (32, 64, 72, 96, 128, 256)
 DTYPES = (torch.bfloat16, torch.float32)
 # pointers, then ints, then the stream: the C launcher's parameters
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]

@@ -16,7 +16,7 @@ import torch
 from . import _build
 from .ref import flash_attention_ref
 
-HEAD_DIMS = (32, 64, 72, 96, 128)
+HEAD_DIMS = (32, 64, 72, 96, 128, 256)
 DTYPES = (torch.bfloat16, torch.float32)
 # pointers, then ints, then the stream: the C launcher's parameters
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]

@@ -11,10 +11,16 @@ tensor to the plain version.
     decode_attention  kernels/decode_attention.py  csrc/decode_attention.cu
     ssd               kernels/ssd_scan.py          csrc/ssd_scan.cu
 
-``ssd_step``, the single-token Mamba2 recurrence, is plain PyTorch on every
-device, as it is plain jnp on every backend in the JAX package: at S = 1 it
-is a few memory-bound elementwise operations, and no TPU kernel was written
-for it.
+Three hot spots of the models stay plain PyTorch on every device, as they
+are plain jnp on every backend in the JAX package, which wrote no Pallas
+kernel for them:
+
+* ``ssd_step``, the single-token Mamba2 recurrence (a few memory-bound
+  elementwise operations at S = 1);
+* ``models.layers.moe_block``, the mixture-of-experts dispatch, expert
+  FFNs and combine;
+* a sliding-window ring's decode step (``models.layers.gqa_attention``
+  under a mask): a ring cache is not the prefix the decode kernel reads.
 """
 from __future__ import annotations
 
@@ -24,7 +30,8 @@ from .decode_attention import decode_attention
 from .flash_attention import flash_attention as attention
 from .ssd_scan import ssd_scan as ssd
 
-# hot spot -> its wrapper, whose ``launches`` counts kernel launches
+# hot spot -> its wrapper, whose ``launches`` counts kernel launches (the
+# plain-only hot spots are listed in the module docstring)
 KERNEL_TABLE = {"attention": attention, "decode_attention": decode_attention,
                 "ssd": ssd}
 

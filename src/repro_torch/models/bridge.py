@@ -5,7 +5,10 @@ replay, so every parity test initialises once in JAX and brings the same
 numbers across.  The tree arrives as numpy arrays with the JAX key names and
 layout (``transformer.init_params``: stacked leading layer axis only for
 groups of more than one layer) and leaves as torch tensors with the same
-keys, shapes and dtypes.  ``np.asarray`` of a JAX bf16 array is an
+keys, shapes and dtypes, whatever the architecture: the expert stacks and
+the router of an MoE layer, zamba2's ``shared_attn`` block (and the empty
+placeholder of each of its groups), whisper's ``encoder``, ``enc_norm``
+and cross weights ``ln_x`` / ``xw*``.  ``np.asarray`` of a JAX bf16 array is an
 ml_dtypes bfloat16 array, which torch cannot read directly: it is widened to
 float32 (exact) and narrowed back to bfloat16 on the torch side.
 """

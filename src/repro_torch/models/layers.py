@@ -1,9 +1,11 @@
 """Neural building blocks, plain functions on tensors over parameter dicts.
 
-Port of ``src/repro/models/layers.py:26-140, 209-361`` (norms, MLPs,
-rotary embeddings, attention, Mamba2).  The hot spots (attention and the
+Port of ``src/repro/models/layers.py`` (norms, MLPs, rotary embeddings,
+attention, mixture of experts, Mamba2).  The hot spots (attention and the
 SSD scan) go through ``kernels.ops``, whose implementation the tensors'
-device picks.  Mixture of experts is not ported yet (ROADMAP, Queue 1).
+device picks.  ``moe_block`` is plain PyTorch on every device, as it is
+plain jnp on every backend of the JAX package (no Pallas kernel was
+written for it).
 """
 from __future__ import annotations
 
@@ -94,21 +96,104 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention_block(x: torch.Tensor, p: Params, *, n_heads: int,
                     n_kv_heads: int, hd: int, positions: torch.Tensor,
-                    rope_theta: float, causal: bool = True, window: int = 0,
+                    rope_theta: float,
+                    kv_override: Optional[Tuple[torch.Tensor,
+                                                torch.Tensor]] = None,
+                    causal: bool = True, window: int = 0,
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Self-attention sublayer body (no residual / norm).  Returns
-    (out, k, v) so callers can stash K/V into a cache.  The attention itself
-    is ``kernels.ops.attention`` with the structural causal/window
+    """Self- (or cross-) attention sublayer body (no residual / norm).
+    Returns (out, k, v) so callers can stash K/V into a cache.
+    ``kv_override`` supplies externally computed K/V (cross-attention): then
+    RoPE rotates q alone, as in the JAX package.  The attention itself is
+    ``kernels.ops.attention`` with the structural causal/window
     description, as the JAX package's kernel path passes it."""
     B, S, _ = x.shape
     q = (x @ p["wq"]).reshape(B, S, n_heads, hd)
-    k = (x @ p["wk"]).reshape(B, S, n_kv_heads, hd)
-    v = (x @ p["wv"]).reshape(B, S, n_kv_heads, hd)
+    if kv_override is None:
+        k = (x @ p["wk"]).reshape(B, S, n_kv_heads, hd)
+        v = (x @ p["wv"]).reshape(B, S, n_kv_heads, hd)
+        k = apply_rope(k, positions, rope_theta)
+    else:
+        k, v = kv_override
     q = apply_rope(q, positions, rope_theta)
-    k = apply_rope(k, positions, rope_theta)
     out = kernel_ops.attention(q, k, v, causal=causal, window=window)
     out = out.reshape(B, S, n_heads * hd) @ p["wo"]
     return out, k, v
+
+
+# ---------------------------------------------------------------------------
+# Mixture of experts (sort-based dispatch with capacity, Switch-style drops)
+# ---------------------------------------------------------------------------
+
+
+def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` over the last axis: the k largest values and their
+    indices, largest first, the lower index first among equal values
+    (``torch.topk`` promises no order for ties)."""
+    idx = torch.argsort(-probs, dim=-1, stable=True)[..., :k]
+    return probs.gather(-1, idx), idx
+
+
+def moe_block(x: torch.Tensor, p: Params, *, n_experts: int, k: int,
+              capacity_factor: float, mlp: str = "swiglu",
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B,S,d) -> (y, aux_loss).  Port of the JAX package's
+    ``moe_block`` (``src/repro/models/layers.py:148-206``).
+
+    Tokens go to their top-k experts, are sorted by expert id (stably, so
+    an expert's tokens keep their order and the last ones past its
+    capacity C are dropped) and gathered into a dense (E, C, d) buffer
+    through a slot -> source-token index; the expert FFNs run as batched
+    einsums over the expert axis, and one gather through the composed
+    permutation brings each token's k outputs back, weighted by its
+    renormalised gates.  A dropped token's expert output is zero.  The
+    auxiliary loss is the Switch load-balance term ``E * sum(me * ce)``."""
+    B, S, d = x.shape
+    T = B * S
+    dev = x.device
+    xt = x.reshape(T, d)
+    logits = (xt @ p["router"]).to(f32)                        # (T,E)
+    probs = torch.softmax(logits, dim=-1)
+    gates, eidx = top_k(probs, k)                              # (T,k)
+    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    E = n_experts
+    C = max(1, int(math.ceil(k * T / E * capacity_factor)))
+    flat_e = eidx.reshape(-1)                                  # (T*k,)
+    sort_idx = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[sort_idx]
+    seg_start = torch.searchsorted(sorted_e,
+                                   torch.arange(E, device=dev))  # (E,)
+    pos_in_e = torch.arange(T * k, device=dev) - seg_start[sorted_e]
+    dest = torch.where(pos_in_e < C, sorted_e * C + pos_in_e,
+                       torch.full_like(pos_in_e, E * C))       # drop bucket
+    token_idx = sort_idx // k
+
+    # dispatch: scatter 8-byte source indices, then one row gather
+    slot_src = torch.full((E * C + 1,), T, dtype=torch.long, device=dev)
+    slot_src[dest] = token_idx
+    xt_pad = torch.cat([xt, xt.new_zeros((1, d))])
+    h = xt_pad[slot_src[:E * C]].reshape(E, C, d)
+    if mlp == "swiglu":
+        g = F.silu(torch.einsum("ecd,edf->ecf", h, p["w_gate"]))
+        u = torch.einsum("ecd,edf->ecf", h, p["w_up"])
+        out_e = torch.einsum("ecf,efd->ecd", g * u, p["w_down"])
+    else:
+        hmid = F.gelu(torch.einsum("ecd,edf->ecf", h, p["w_up"]),
+                      approximate="tanh")
+        out_e = torch.einsum("ecf,efd->ecd", hmid, p["w_down"])
+
+    # combine: the two permutations (sorted -> slot, unsort) composed into
+    # one row gather
+    out_flat = torch.cat([out_e.reshape(E * C, d), out_e.new_zeros((1, d))])
+    inv = torch.argsort(sort_idx)
+    out_tk = out_flat[dest[inv]].reshape(T, k, d)
+    y = (out_tk * gates.to(x.dtype)[..., None]).sum(dim=1)
+
+    me = probs.mean(dim=0)                                     # (E,)
+    ce = F.one_hot(eidx[:, 0], E).to(f32).mean(dim=0)
+    aux = E * torch.sum(me * ce)
+    return y.reshape(B, S, d), aux
 
 
 # ---------------------------------------------------------------------------

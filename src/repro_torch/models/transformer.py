@@ -1,12 +1,24 @@
-"""Decoder model: dense attention and Mamba2 layer groups, in plain PyTorch.
+"""The model zoo: dense / MoE / SSM / hybrid / enc-dec / VLM / audio, in
+plain PyTorch.
 
-Port of ``src/repro/models/transformer.py:44-550`` for attention and Mamba
-groups.
+Port of ``src/repro/models/transformer.py:44-550``.  Every architecture is
+a sequence of homogeneous layer groups (``cfg.groups()``): attention groups
+(full, sliding-window, with cross-attention, with a mixture-of-experts FFN),
+Mamba2 groups, and zamba2's ``shared_attn`` groups, which all run the one
+``params["shared_attn"]`` block and each keep their own cache entry.
+Whisper's encoder (``params["encoder"]``, ``enc_norm``) runs bidirectional
+attention over the frontend frames; its decoder cross-attends to them.
+Modality frontends are stubs, as in the JAX package: the caller passes
+``frontend`` embeddings (B, F, d), which an encoder-decoder encodes and any
+other frontend model prepends to the text.
+
 Parameters are a dict with the JAX package's key names and layout: each
 group's leaves carry a leading layer axis when the group has more than one
-layer, and none when it has one.  The JAX ``lax.scan`` over that axis is a
-loop here.  Caches always carry the leading layer axis: K/V per attention
-group, conv inputs and SSM state per Mamba group.
+layer, and none when it has one (a ``shared_attn`` group's entry is an
+empty placeholder).  The JAX ``lax.scan`` over that axis is a loop here.
+Caches always carry the leading layer axis: K/V (and an encoder-decoder's
+cross K/V, ``xk`` / ``xv``) per attention group, conv inputs and SSM state
+per Mamba group.
 
 Differences from the JAX package, all deliberate:
 
@@ -22,19 +34,26 @@ Differences from the JAX package, all deliberate:
 * Every attention and SSD-scan call goes through ``kernels.ops`` (the JAX
   package's kernel path); sliding-window decode keeps the masked
   ``gqa_attention`` on every device, as in JAX, because a ring cache is not
-  a prefix.
+  a prefix.  Cross-attention in decode is the flash kernel with one
+  non-causal query, as in JAX.
 
-Mixture of experts, cross-attention, zamba2's shared attention, the
-modality frontends and the encoder are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item.
+Properties of the reference, copied as they are:
+
+* A frontend model's prefill runs ``F + S_text`` positions into a
+  full-attention cache of width ``max_len``: when ``F + S_text`` exceeds
+  it, the ring keeps the last ``max_len`` positions at ``pos mod max_len``,
+  and a decode step at ``t`` then attends to slots ``[0, t]`` as a prefix
+  at RoPE position ``t`` (text positions, not counting F).
+* Cross-attention rotates its query with RoPE in ``forward`` / ``prefill``
+  but not in decode.
 
 Entry points:
-  init_params(cfg, seed, device)                -> params
-  forward(cfg, params, tokens)                  -> (logits, aux)
-  init_cache(cfg, batch, max_len, device)       -> cache
-  prefill(cfg, params, tokens, cache)           -> (logits, cache)
-  decode_step(cfg, params, cache, token, t)     -> (logits, cache)
-  decode_step_ragged(cfg, params, cache, token, t) -> (logits, cache)
+  init_params(cfg, seed, device)                          -> params
+  forward(cfg, params, tokens, frontend=None)             -> (logits, aux)
+  init_cache(cfg, batch, max_len, device, enc_len=None)   -> cache
+  prefill(cfg, params, tokens, cache, frontend=None)      -> (logits, cache)
+  decode_step(cfg, params, cache, token, t)               -> (logits, cache)
+  decode_step_ragged(cfg, params, cache, token, t)        -> (logits, cache)
 """
 from __future__ import annotations
 
@@ -47,37 +66,10 @@ from ..device import DeviceLike, resolve_device
 from ..kernels import ops as kernel_ops
 from .config import LayerGroup, ModelConfig
 from .layers import (apply_rope, attention_block, gelu_mlp, gqa_attention,
-                     mamba2_block, rms_norm, swiglu)
+                     mamba2_block, moe_block, rms_norm, swiglu)
 
 Params = Dict[str, Any]
 f32 = torch.float32
-
-_ZOO = "ROADMAP Queue 1, 'Rest of the model zoo'"
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    for g in cfg.groups():
-        if g.kind == "shared_attn":
-            raise NotImplementedError(
-                f"{cfg.name}: zamba2's shared attention is not ported yet "
-                f"({_ZOO})")
-        if g.moe:
-            raise NotImplementedError(
-                f"{cfg.name}: mixture-of-experts FFNs are not ported yet "
-                f"({_ZOO})")
-        if g.cross_attn:
-            raise NotImplementedError(
-                f"{cfg.name}: cross-attention is not ported yet ({_ZOO})")
-    if cfg.n_enc_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder stack is not ported yet ({_ZOO})")
-
-
-def _check_no_frontend(cfg: ModelConfig) -> None:
-    if cfg.frontend:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend stub is not ported yet "
-            f"({_ZOO})")
 
 
 # ---------------------------------------------------------------------------
@@ -88,8 +80,8 @@ def _check_no_frontend(cfg: ModelConfig) -> None:
 def _dense_init(gen, shape, dtype, device, scale=0.02) -> torch.Tensor:
     if device.type == "meta":
         return torch.empty(shape, dtype=dtype, device=device)
-    return (torch.randn(shape, generator=gen, dtype=f32, device=device)
-            * scale).to(dtype)
+    return torch.randn(shape, generator=gen, dtype=f32,
+                       device=device).mul_(scale).to(dtype)
 
 
 def _attn_layer_shapes(cfg: ModelConfig, g: LayerGroup) -> Dict[str, tuple]:
@@ -100,7 +92,14 @@ def _attn_layer_shapes(cfg: ModelConfig, g: LayerGroup) -> Dict[str, tuple]:
         "wq": (d, hq * hd), "wk": (d, hkv * hd), "wv": (d, hkv * hd),
         "wo": (hq * hd, d),
     }
-    if cfg.mlp == "swiglu":
+    if g.cross_attn:
+        s.update({"ln_x": (d,), "xwq": (d, hq * hd), "xwk": (d, hkv * hd),
+                  "xwv": (d, hkv * hd), "xwo": (hq * hd, d)})
+    if g.moe:
+        E = cfg.n_experts
+        s.update({"router": (d, E), "w_gate": (E, d, f), "w_up": (E, d, f),
+                  "w_down": (E, f, d)})
+    elif cfg.mlp == "swiglu":
         s.update({"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)})
     else:
         s.update({"w_up": (d, f), "w_down": (f, d)})
@@ -153,7 +152,6 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     from ``jax.random`` and differ: tests bridge the JAX weights instead).
     ``device="meta"`` gives the shape tree without allocating."""
     dev = resolve_device(device)
-    _check_supported(cfg)
     gen = None
     if dev.type != "meta":
         gen = torch.Generator(device=dev)
@@ -167,10 +165,27 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     if not cfg.tie_embeddings:
         params["lm_head"] = _dense_init(
             gen, (cfg.d_model, cfg.vocab_padded), dtype, dev)
-    params["groups"] = [
-        _init_layer(gen, _mamba_layer_shapes(cfg) if g.kind == "mamba"
-                    else _attn_layer_shapes(cfg, g), g.count, dtype, dev)
-        for g in cfg.groups()]
+    glist: List[Params] = []
+    for g in cfg.groups():
+        if g.kind == "shared_attn":
+            if "shared_attn" not in params:
+                params["shared_attn"] = _init_layer(
+                    gen, _attn_layer_shapes(cfg, LayerGroup("attn", 1)), 1,
+                    dtype, dev)
+            glist.append({})        # placeholder: runs params["shared_attn"]
+        elif g.kind == "mamba":
+            glist.append(_init_layer(gen, _mamba_layer_shapes(cfg), g.count,
+                                     dtype, dev))
+        else:
+            glist.append(_init_layer(gen, _attn_layer_shapes(cfg, g),
+                                     g.count, dtype, dev))
+    params["groups"] = glist
+    if cfg.n_enc_layers:
+        params["encoder"] = _init_layer(
+            gen, _attn_layer_shapes(cfg, LayerGroup("attn", cfg.n_enc_layers)),
+            cfg.n_enc_layers, dtype, dev)
+        params["enc_norm"] = torch.zeros((cfg.d_model,), dtype=dtype,
+                                         device=dev)
     return params
 
 
@@ -191,20 +206,40 @@ def _layer_params(gp: Params) -> Iterator[Params]:
         yield {name: t[i] for name, t in gp.items()}
 
 
-def _ffn(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+def _ffn(cfg: ModelConfig, g: LayerGroup, p: Params, x: torch.Tensor
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The layer's FFN and its auxiliary loss (zero unless MoE)."""
+    if g.moe:
+        return moe_block(x, p, n_experts=cfg.n_experts,
+                         k=cfg.experts_per_token,
+                         capacity_factor=cfg.capacity_factor, mlp=cfg.mlp)
+    zero = torch.zeros((), dtype=f32, device=x.device)
     if cfg.mlp == "swiglu":
-        return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
-    return gelu_mlp(x, p["w_up"], p["w_down"])
+        return swiglu(x, p["w_gate"], p["w_up"], p["w_down"]), zero
+    return gelu_mlp(x, p["w_up"], p["w_down"]), zero
+
+
+def _enc_kv(cfg: ModelConfig, lp: Params, enc_out: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A decoder layer's cross-attention K/V over the encoder output."""
+    B, Se, _ = enc_out.shape
+    k = (enc_out @ lp["xwk"]).reshape(B, Se, cfg.n_kv_heads, cfg.hd)
+    v = (enc_out @ lp["xwv"]).reshape(B, Se, cfg.n_kv_heads, cfg.hd)
+    return k, v
 
 
 def _attn_group_fwd(cfg: ModelConfig, g: LayerGroup, gp: Params,
-                    x: torch.Tensor, positions: torch.Tensor
-                    ) -> Tuple[torch.Tensor, List[Tuple[torch.Tensor,
-                                                        torch.Tensor]]]:
+                    x: torch.Tensor, positions: torch.Tensor,
+                    enc_out: Optional[torch.Tensor] = None,
+                    ) -> Tuple[torch.Tensor, torch.Tensor,
+                               List[Dict[str, torch.Tensor]]]:
     """Run an attention group over a whole sequence.  Returns the hidden
-    state and each layer's (k, v)."""
+    state, the group's summed auxiliary loss and each layer's cache rows:
+    {"k", "v"}, and the cross K/V {"xk", "xv"} of a cross-attention
+    layer."""
     kv = []
     h = x
+    aux = torch.zeros((), dtype=f32, device=x.device)
     for lp in _layer_params(gp):
         a, k, v = attention_block(
             rms_norm(h, lp["ln1"], cfg.norm_eps), lp,
@@ -212,9 +247,22 @@ def _attn_group_fwd(cfg: ModelConfig, g: LayerGroup, gp: Params,
             positions=positions, rope_theta=cfg.rope_theta,
             causal=True, window=g.window)
         h = h + a
-        h = h + _ffn(cfg, lp, rms_norm(h, lp["ln2"], cfg.norm_eps))
-        kv.append((k, v))
-    return h, kv
+        rows = {"k": k, "v": v}
+        if g.cross_attn:
+            rows["xk"], rows["xv"] = _enc_kv(cfg, lp, enc_out)
+            xa, _, _ = attention_block(
+                rms_norm(h, lp["ln_x"], cfg.norm_eps),
+                {"wq": lp["xwq"], "wo": lp["xwo"]},
+                n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, hd=cfg.hd,
+                positions=positions, rope_theta=cfg.rope_theta,
+                kv_override=(rows["xk"], rows["xv"]), causal=False,
+                window=0)
+            h = h + xa
+        f, a_loss = _ffn(cfg, g, lp, rms_norm(h, lp["ln2"], cfg.norm_eps))
+        h = h + f
+        aux = aux + a_loss
+        kv.append(rows)
+    return h, aux, kv
 
 
 def _mamba_group_fwd(cfg: ModelConfig, gp: Params, x: torch.Tensor,
@@ -253,14 +301,18 @@ def _store(ce: Dict[str, torch.Tensor],
 # ---------------------------------------------------------------------------
 
 
-def _embed(cfg: ModelConfig, params: Params,
-           tokens: torch.Tensor) -> torch.Tensor:
+def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+           frontend: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Gather, cast to the compute dtype, then scale by sqrt(d) in that
-    dtype: JAX rounds the weakly typed scalar to the array's dtype first."""
+    dtype: JAX rounds the weakly typed scalar to the array's dtype first.
+    A frontend model's (B, F, d) embeddings go ahead of the text."""
     h = params["embed"][tokens].to(cfg.dtype())
     scale = torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype,
                          device=h.device)
-    return h * scale
+    h = h * scale
+    if frontend is not None and cfg.frontend and cfg.arch_type != "encdec":
+        h = torch.cat([frontend.to(cfg.dtype()), h], dim=1)
+    return h
 
 
 def _unembed(cfg: ModelConfig, params: Params,
@@ -273,26 +325,64 @@ def _unembed(cfg: ModelConfig, params: Params,
     return h @ params["lm_head"].to(h.dtype)
 
 
+def _encode(cfg: ModelConfig, params: Params,
+            frontend: torch.Tensor) -> torch.Tensor:
+    """Whisper-style bidirectional encoder over the (stub) frame
+    embeddings (B, F, d): non-causal flash attention in every layer."""
+    h = frontend.to(cfg.dtype())
+    pos = torch.arange(h.shape[1], device=h.device)[None, :]
+    for lp in _layer_params(params["encoder"]):
+        a, _, _ = attention_block(
+            rms_norm(h, lp["ln1"], cfg.norm_eps), lp,
+            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, hd=cfg.hd,
+            positions=pos, rope_theta=cfg.rope_theta, causal=False, window=0)
+        h = h + a
+        f, _ = _ffn(cfg, LayerGroup("attn", 1), lp,
+                    rms_norm(h, lp["ln2"], cfg.norm_eps))
+        h = h + f
+    return rms_norm(h, params["enc_norm"], cfg.norm_eps)
+
+
+def _inputs(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+            frontend: Optional[torch.Tensor]
+            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The decoder's input sequence and, for an encoder-decoder, the
+    encoder output."""
+    if cfg.arch_type != "encdec":
+        return _embed(cfg, params, tokens, frontend), None
+    if frontend is None:
+        raise ValueError(f"{cfg.name}: an encoder-decoder needs frontend "
+                         f"frames")
+    return _embed(cfg, params, tokens), _encode(cfg, params, frontend)
+
+
+def _group_params(params: Params, g: LayerGroup, gp: Params) -> Params:
+    return params["shared_attn"] if g.kind == "shared_attn" else gp
+
+
 # ---------------------------------------------------------------------------
 # forward (teacher forcing)
 # ---------------------------------------------------------------------------
 
 
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+            frontend: Optional[torch.Tensor] = None,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens: (B, S).  Returns (logits (B, S, V), aux_loss scalar); the
-    auxiliary loss is zero without mixture-of-experts layers."""
-    _check_supported(cfg)
-    _check_no_frontend(cfg)
-    h = _embed(cfg, params, tokens)
+    """tokens: (B, S_text); frontend: (B, F, d) when ``cfg.frontend`` is
+    set.  Returns (logits (B, S_total, V), aux_loss scalar): S_total counts
+    the frontend positions of a non-encdec frontend model, and the
+    auxiliary loss sums the MoE layers' (zero without them)."""
+    h, enc_out = _inputs(cfg, params, tokens, frontend)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
+    aux = torch.zeros((), dtype=f32, device=h.device)
     for g, gp in zip(cfg.groups(), params["groups"]):
         if g.kind == "mamba":
             h, _ = _mamba_group_fwd(cfg, gp, h)
         else:
-            h, _ = _attn_group_fwd(cfg, g, gp, h, positions)
-    return _unembed(cfg, params, h), torch.zeros((), dtype=f32,
-                                                 device=h.device)
+            h, a, _ = _attn_group_fwd(cfg, g, _group_params(params, g, gp),
+                                      h, positions, enc_out)
+            aux = aux + a
+    return _unembed(cfg, params, h), aux
 
 
 # ---------------------------------------------------------------------------
@@ -305,14 +395,16 @@ def _attn_cache_len(g: LayerGroup, max_len: int) -> int:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device: DeviceLike = None) -> Dict[str, Any]:
+               device: DeviceLike = None,
+               enc_len: Optional[int] = None) -> Dict[str, Any]:
     """Zeroed caches.  Attention groups: K/V, (layers, batch, W, Hkv, hd);
     W is ``max_len`` for full attention and ``min(window, max_len)`` for a
-    sliding-window ring.  Mamba groups: the conv inputs, (layers, batch,
+    sliding-window ring; a cross-attention group adds the cross K/V ``xk`` /
+    ``xv``, (layers, batch, L, Hkv, hd), L = ``enc_len`` or
+    ``cfg.n_enc_tokens``.  Mamba groups: the conv inputs, (layers, batch,
     conv - 1, d_inner + 2N) in the compute dtype, and the SSM state,
     (layers, batch, H, P, N) in float32."""
     dev = resolve_device(device)
-    _check_supported(cfg)
     entries = []
     for g in cfg.groups():
         if g.kind == "mamba":
@@ -324,12 +416,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                                       cfg.ssm_head_dim, cfg.ssm_state),
                                      dtype=f32, device=dev)})
             continue
-        shape = (g.count, batch, _attn_cache_len(g, max_len),
-                 cfg.n_kv_heads, cfg.hd)
-        entries.append({"k": torch.zeros(shape, dtype=cfg.dtype(),
-                                         device=dev),
-                        "v": torch.zeros(shape, dtype=cfg.dtype(),
-                                         device=dev)})
+        shapes = {"k": _attn_cache_len(g, max_len),
+                  "v": _attn_cache_len(g, max_len)}
+        if g.cross_attn:
+            shapes["xk"] = shapes["xv"] = enc_len or cfg.n_enc_tokens
+        entries.append({
+            key: torch.zeros((g.count, batch, L, cfg.n_kv_heads, cfg.hd),
+                             dtype=cfg.dtype(), device=dev)
+            for key, L in shapes.items()})
     return {"layers": entries}
 
 
@@ -339,13 +433,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-            cache: Dict[str, Any]) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Run the prompt (B, S), write its K/V (attention) and conv inputs and
-    state (Mamba) into ``cache`` in place and return (last-position logits
-    (B, 1, V), cache)."""
-    _check_supported(cfg)
-    _check_no_frontend(cfg)
-    h = _embed(cfg, params, tokens)
+            cache: Dict[str, Any], frontend: Optional[torch.Tensor] = None,
+            ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Run the prompt (B, S_text), with ``frontend`` (B, F, d) for a
+    frontend model, write its K/V (attention; an encoder-decoder's cross
+    K/V too) and conv inputs and state (Mamba) into ``cache`` in place and
+    return (last-position logits (B, 1, V), cache)."""
+    h, enc_out = _inputs(cfg, params, tokens, frontend)
     S = h.shape[1]
     positions = torch.arange(S, device=h.device)[None, :]
     for g, gp, ce in zip(cfg.groups(), params["groups"], cache["layers"]):
@@ -353,11 +447,20 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             h, caches = _mamba_group_fwd(cfg, gp, h)
             _store(ce, caches)
             continue
-        h, kv = _attn_group_fwd(cfg, g, gp, h, positions)
+        h, _, kv = _attn_group_fwd(cfg, g, _group_params(params, g, gp), h,
+                                   positions, enc_out)
+        if g.cross_attn and ce["xk"].shape[2] != enc_out.shape[1]:
+            raise ValueError(
+                f"{cfg.name}: cross cache holds {ce['xk'].shape[2]} frames, "
+                f"the encoder gave {enc_out.shape[1]} (pass enc_len to "
+                f"init_cache)")
         W = ce["k"].shape[2]
-        for i, (k, v) in enumerate(kv):
-            _ring_fill(ce["k"][i], k, S, W)
-            _ring_fill(ce["v"][i], v, S, W)
+        for i, rows in enumerate(kv):
+            _ring_fill(ce["k"][i], rows["k"], S, W)
+            _ring_fill(ce["v"][i], rows["v"], S, W)
+            if g.cross_attn:
+                ce["xk"][i].copy_(rows["xk"])
+                ce["xv"][i].copy_(rows["xv"])
     return _unembed(cfg, params, h[:, -1:, :]), cache
 
 
@@ -398,7 +501,6 @@ def decode_step_ragged(cfg: ModelConfig, params: Params,
     at different depths share one step; a Mamba row's state is its own
     whatever its depth.  Returns (logits (B,1,V), cache updated in
     place)."""
-    _check_supported(cfg)
     t = t.to(torch.int32)
     h = _embed(cfg, params, token)
     for g, gp, ce in zip(cfg.groups(), params["groups"], cache["layers"]):
@@ -406,7 +508,8 @@ def decode_step_ragged(cfg: ModelConfig, params: Params,
             h, caches = _mamba_group_fwd(cfg, gp, h, ce)
             _store(ce, caches)
         else:
-            h = _attn_group_decode(cfg, g, gp, ce, h, t)
+            h = _attn_group_decode(cfg, g, _group_params(params, g, gp), ce,
+                                   h, t)
     return _unembed(cfg, params, h), cache
 
 
@@ -447,5 +550,14 @@ def _attn_group_decode(cfg: ModelConfig, g: LayerGroup, gp: Params,
             a = kernel_ops.decode_attention(q[:, 0].contiguous(), lk, lv,
                                             vlen)[:, None]
         h = h + a.reshape(B, 1, cfg.n_heads * cfg.hd) @ lp["wo"]
-        h = h + _ffn(cfg, lp, rms_norm(h, lp["ln2"], cfg.norm_eps))
+        if g.cross_attn:
+            # the flash kernel with one non-causal query, q without RoPE,
+            # as in the JAX package's decode
+            hx = rms_norm(h, lp["ln_x"], cfg.norm_eps)
+            qx = (hx @ lp["xwq"]).reshape(B, 1, cfg.n_heads, cfg.hd)
+            ax = kernel_ops.attention(qx, ce["xk"][i], ce["xv"][i],
+                                      causal=False, window=0)
+            h = h + ax.reshape(B, 1, cfg.n_heads * cfg.hd) @ lp["xwo"]
+        f, _ = _ffn(cfg, g, lp, rms_norm(h, lp["ln2"], cfg.norm_eps))
+        h = h + f
     return h

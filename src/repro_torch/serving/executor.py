@@ -16,8 +16,15 @@ start.
 
 Prompts come from numpy seeded by the invocation (``inv_id``) or by
 ``batch_seed`` of the member set (``jax.random`` cannot be replayed here).
-Each executor draws them apart from the model call (``run_tokens``,
-``_admit_tokens``) so tests can feed both packages the same tokens.
+As in the JAX package, the draw and its copy to the device fall inside the
+timed region of a run or a join.  ``run_tokens`` and ``_admit_tokens``
+take given tokens, so tests can feed both packages the same prompt.  The
+finiteness bookkeeping of the continuous executor (``logits_finite``) is
+enqueued after a join's or step's clock stops.
+
+Models with a modality frontend get zero frontend embeddings of
+``(batch, n_frontend_tokens, d_model)`` in the compute dtype, as the JAX
+executor passes them (the frontends are stubs in both packages).
 
 ``ContinuousTorchExecutor`` keeps the JAX executor's surface (``admit``,
 ``step``, ``gen_steps``, ``release_slots``, ``calibrate``, ``buckets``,
@@ -90,6 +97,16 @@ def prompt_tokens(served: ServedModel, seed: int, n: int) -> np.ndarray:
     return rng.integers(0, served.cfg.vocab_size, (n, served.prompt_len))
 
 
+def frontend_stub(cfg: ModelConfig, batch: int,
+                  device: torch.device) -> Optional[torch.Tensor]:
+    """Zero frontend embeddings (batch, n_frontend_tokens, d_model) for a
+    model with a modality frontend, else None."""
+    if not cfg.frontend:
+        return None
+    return torch.zeros((batch, cfg.n_frontend_tokens, cfg.d_model),
+                       dtype=cfg.dtype(), device=device)
+
+
 @dataclass
 class ModelInstance:
     """A warm sandbox: weights + cache on the device, warmed up.
@@ -113,11 +130,15 @@ class ModelInstance:
         sm = self.served
         if self.params is None:
             self.params = init_params(sm.cfg, seed, self.device)
+        # an encoder-decoder's cross K/V hold the frames its prefill encodes
+        enc_len = (sm.cfg.n_frontend_tokens if sm.cfg.arch_type == "encdec"
+                   else None)
         self.cache = init_cache(sm.cfg, sm.batch, sm.prompt_len + sm.gen_len,
-                                self.device)
+                                self.device, enc_len=enc_len)
         tokens = torch.zeros((sm.batch, sm.prompt_len), dtype=torch.long,
                              device=self.device)
-        prefill(sm.cfg, self.params, tokens, self.cache)
+        prefill(sm.cfg, self.params, tokens, self.cache,
+                frontend_stub(sm.cfg, sm.batch, self.device))
         decode_step(sm.cfg, self.params, self.cache,
                     torch.zeros((sm.batch, 1), dtype=torch.long,
                                 device=self.device), sm.prompt_len)
@@ -127,22 +148,28 @@ class ModelInstance:
 
     def run(self, seed: int = 0) -> float:
         """One request: prefill + gen_len greedy decode steps on a prompt
-        seeded by ``seed``.  Returns measured wall seconds."""
+        seeded by ``seed``.  Returns measured wall seconds, the prompt's
+        draw included."""
+        t0 = time.perf_counter()
         return self.run_tokens(prompt_tokens(self.served, seed,
-                                             self.served.batch))
+                                             self.served.batch), t0)
 
-    def run_tokens(self, tokens: np.ndarray) -> float:
+    def run_tokens(self, tokens: np.ndarray,
+                   t0: Optional[float] = None) -> float:
         """Prefill ``tokens`` (batch, prompt_len), then decode gen_len
         greedy tokens; ``last_tokens`` keeps the first sampled token and the
-        decoded ones.  Returns measured wall seconds.  Every cache position
-        a step reads was written in this run, so the cache is reused."""
+        decoded ones.  Returns measured wall seconds since ``t0`` (default:
+        the call).  Every cache position a step reads was written in this
+        run, so the cache is reused."""
         sm = self.served
-        t0 = time.perf_counter()
+        if t0 is None:
+            t0 = time.perf_counter()
         toks = torch.as_tensor(np.asarray(tokens), dtype=torch.long,
                                device=self.device)
         out = torch.empty((sm.batch, sm.gen_len + 1), dtype=torch.int32,
                           device=self.device)
-        logits, _ = prefill(sm.cfg, self.params, toks, self.cache)
+        logits, _ = prefill(sm.cfg, self.params, toks, self.cache,
+                            frontend_stub(sm.cfg, sm.batch, self.device))
         tok = torch.argmax(logits, dim=-1)                      # (B, 1)
         out[:, :1] = tok
         for i in range(sm.gen_len):
@@ -281,7 +308,8 @@ class _ContinuousState:
     (``pow2_bucket(max_batch)`` sequences); every request owns one slot for
     its lifetime.  ``tok``/``pos`` hold each slot's last sampled token and
     absolute decode position; ``finite`` stays true while every logit the
-    data plane produced was finite."""
+    data plane produced was finite.  ``logits`` keeps the last join's or
+    step's logits until its finiteness is noted, after its clock stops."""
 
     served: ServedModel
     cap: int
@@ -290,6 +318,7 @@ class _ContinuousState:
     tok: Optional[torch.Tensor] = None        # (cap, 1) int32
     pos: Optional[torch.Tensor] = None        # (cap,)  int32
     finite: Optional[torch.Tensor] = None     # () bool
+    logits: Optional[torch.Tensor] = None     # (b, 1, V), until noted
     setup_seconds: float = 0.0
 
 
@@ -366,7 +395,9 @@ class ContinuousTorchExecutor:
             ids = torch.arange(b, device=self.device)
             self._join(st, torch.zeros((b, sm.prompt_len), dtype=torch.long,
                                        device=self.device), ids)
+            self._note_finite(st)
             self._step(st, ids)
+            self._note_finite(st)
         _sync(self.device)
         st.setup_seconds = time.perf_counter() - t0
         return st
@@ -379,7 +410,7 @@ class ContinuousTorchExecutor:
                            sm.prompt_len + sm.gen_len, self.device)
         lg, c = prefill(sm.cfg, st.params, tokens, cache)
         first = torch.argmax(lg, dim=-1).to(torch.int32)        # (b,1)
-        st.finite &= torch.isfinite(lg).all()
+        st.logits = lg
         for se, ce in zip(st.slab["layers"], c["layers"]):
             for key in se:
                 se[key].index_copy_(1, slot_ids, ce[key])
@@ -396,12 +427,18 @@ class ContinuousTorchExecutor:
         lg, c2 = decode_step_ragged(sm.cfg, st.params, sub,
                                     st.tok.index_select(0, slot_ids), pos)
         ntok = torch.argmax(lg, dim=-1).to(torch.int32)         # (b,1)
-        st.finite &= torch.isfinite(lg).all()
+        st.logits = lg
         for se, ce in zip(st.slab["layers"], c2["layers"]):
             for key in se:
                 se[key].index_copy_(1, slot_ids, ce[key])
         st.tok.index_copy_(0, slot_ids, ntok)
         st.pos.index_copy_(0, slot_ids, pos + 1)
+
+    def _note_finite(self, st: _ContinuousState) -> None:
+        """Fold the kept logits into ``finite`` (enqueued, not waited for)
+        and drop them: called after a join's or step's clock stops."""
+        st.finite &= torch.isfinite(st.logits).all()
+        st.logits = None
 
     # -- batcher hooks --------------------------------------------------------
     def _pad_slots(self, slots: List[int]) -> Tuple[int, torch.Tensor]:
@@ -423,15 +460,19 @@ class ContinuousTorchExecutor:
 
     def _admit_seeded(self, fn_name: str, ids: List[int],
                       slots: List[int]) -> float:
+        self._ensure(fn_name)
+        t0 = time.perf_counter()
         return self._admit_tokens(
-            fn_name, self.prompt_tokens(fn_name, ids, len(slots)), slots)
+            fn_name, self.prompt_tokens(fn_name, ids, len(slots)), slots, t0)
 
     def _admit_tokens(self, fn_name: str, tokens: np.ndarray,
-                      slots: List[int]) -> float:
+                      slots: List[int], t0: Optional[float] = None) -> float:
         """Prefill ``tokens`` (len(slots), prompt_len) into ``slots``;
-        returns measured wall seconds."""
+        returns measured wall seconds since ``t0`` (default: the call,
+        after the function's set-up)."""
         st = self._ensure(fn_name)
-        t0 = time.perf_counter()
+        if t0 is None:
+            t0 = time.perf_counter()
         b, slot_ids = self._pad_slots(slots)
         toks = torch.as_tensor(np.asarray(tokens), dtype=torch.long,
                                device=self.device)
@@ -439,8 +480,10 @@ class ContinuousTorchExecutor:
             toks = torch.cat([toks, toks[:1].expand(b - len(slots), -1)])
         self._join(st, toks, slot_ids)
         _sync(self.device)
+        dur = time.perf_counter() - t0
+        self._note_finite(st)
         self.n_admits += 1
-        return time.perf_counter() - t0
+        return dur
 
     def step(self, fn_name: str, slots: List[int]) -> float:
         st = self._ensure(fn_name)
@@ -448,8 +491,10 @@ class ContinuousTorchExecutor:
         _, slot_ids = self._pad_slots(slots)
         self._step(st, slot_ids)
         _sync(self.device)
+        dur = time.perf_counter() - t0
+        self._note_finite(st)
         self.n_steps += 1
-        return time.perf_counter() - t0
+        return dur
 
     def release_slots(self, fn_name: str, slots: List[int]) -> None:
         """Scrub the token/position rows of vacated cache slots (slab

@@ -127,7 +127,8 @@ T_BACKEND = _scripted_backend(tcore.BatchedTorchBackend,
                               device="cpu")
 
 
-def _scripted_run(pkg, batching, faults=False):
+def _scripted_run(pkg, batching, faults=False, app_set="smoke_apps",
+                  rps=30.0, n_sgs=1, pool_mem_mb=2048.0):
     core, sim, apps, backend_cls = pkg
     extra = {} if backend_cls is J_BACKEND else {"device": "cpu"}
     backend = backend_cls(batching=batching, max_batch=2, batch_window=0.01,
@@ -140,10 +141,11 @@ def _scripted_run(pkg, batching, faults=False):
     return sim.simulate(sim.Experiment(
         stack="archipelago", backend=backend,
         workload_factory="serving_apps",
-        workload_kwargs=dict(apps=apps.smoke_apps(), duration=1.5, rps=30.0,
-                             prewarm_per_fn=1),
-        cluster=core.ClusterConfig(n_sgs=1, workers_per_sgs=2,
-                                   cores_per_worker=2, pool_mem_mb=2048.0),
+        workload_kwargs=dict(apps=getattr(apps, app_set)(), duration=1.5,
+                             rps=rps, prewarm_per_fn=1),
+        cluster=core.ClusterConfig(n_sgs=n_sgs, workers_per_sgs=2,
+                                   cores_per_worker=2,
+                                   pool_mem_mb=pool_mem_mb),
         drain=10.0, seed=2, faults=plan))
 
 
@@ -172,6 +174,71 @@ def test_scripted_torch_batched_schedules_as_jax_batched(batching):
     assert rows[0] == rows[1]
     assert t.n_completed == t.n_requests > 0
     assert t.data_plane == {"device": "cpu", "batching": batching}
+
+
+def test_scripted_multitenant_apps_schedule_as_jax_batched():
+    """``multitenant_apps``' four tenants (dense, SSM, MoE and the
+    two-stage VLM DAG) on windowed ``torch-batched`` give
+    ``jax-batched``'s timeline on scripted times (continuous batching
+    refuses the VLM in both packages)."""
+    j, t = (_scripted_run(p, "windowed", app_set="multitenant_apps",
+                          rps=6.0, n_sgs=2, pool_mem_mb=4096.0)
+            for p in (JAX_PKG, TORCH_PKG))
+    assert _timeline(t) == _timeline(j)
+    rows = [r.to_dict() for r in (j, t)]
+    for r in rows:
+        del r["wall_s"], r["data_plane"], r["backend"], r["name"]
+    assert rows[0] == rows[1]
+    assert sorted(t.per_class) == ["caption", "chat", "complete", "moe"]
+    assert t.n_completed == t.n_requests > 0
+    assert t.accounting["lost"] == 0
+
+
+@pytest.mark.parametrize("backend,kwargs", BACKENDS[1:],
+                         ids=["windowed", "torch"])
+def test_torch_backends_serve_multitenant_apps(backend, kwargs):
+    """The four tenants of ``multitenant_apps`` under ``archipelago`` on
+    the CPU: every request completes once, every function of a request
+    runs once, and the caption DAG runs ``vlm/embed`` before
+    ``vlm/decode``."""
+    be = tcore.get_backend(backend)(**kwargs, device="cpu", calib_runs=1)
+    exp = tsim.Experiment(
+        stack="archipelago", backend=be, workload_factory="serving_apps",
+        workload_kwargs=dict(apps=tapps.multitenant_apps(), duration=1.0,
+                             rps=4.0),
+        cluster=tcore.ClusterConfig(n_sgs=2, workers_per_sgs=2,
+                                    cores_per_worker=2, pool_mem_mb=4096.0),
+        drain=60.0, seed=3)
+    be.build(exp, exp.resolve_workload())        # calibrate once, here
+    ex, ran = be.executor, []
+    if kwargs:
+        run_batch = ex.run_batch
+
+        def counted(fn, invs):
+            ran.extend((inv.request.req_id, fn) for inv in invs)
+            return run_batch(fn, invs)
+        ex.run_batch = counted
+    else:
+        execute = ex.execute
+
+        def counted(inv):
+            ran.append((inv.request.req_id, inv.fn.name))
+            return execute(inv)
+        ex.execute = counted
+    r = tsim.simulate(exp)
+    acc = r.accounting
+    assert sorted(r.per_class) == ["caption", "chat", "complete", "moe"]
+    assert all(st.n_completed == st.n_requests > 0
+               for st in r.per_class.values())
+    assert acc["lost"] == 0 and acc["duplicate_completions"] == 0
+    assert acc["completed"] == acc["arrivals"] == r.n_requests_total
+    assert len(ran) == len(set(ran))
+    order = {}
+    for req, fn in ran:
+        order.setdefault(req, []).append(fn)
+    captions = [fns for fns in order.values() if "vlm/embed" in fns]
+    assert len(captions) == r.per_class["caption"].n_requests
+    assert all(fns == ["vlm/embed", "vlm/decode"] for fns in captions)
 
 
 def test_worker_crash_releases_the_dead_members_slots():

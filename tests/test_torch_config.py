@@ -15,11 +15,10 @@ from repro_torch.configs import ARCH_IDS, INPUT_SHAPES, get_config  # noqa: E402
 from repro_torch.models import init_params  # noqa: E402
 
 CASES = [(a, r) for a in J_ARCH_IDS for r in (False, True)]
-# architectures whose layers the port runs so far (dense attention and
-# Mamba2; the VLM's frontend stub is refused at forward time, its weights
-# are dense)
-PORTED = ("minicpm-2b", "phi3-mini-3.8b", "gemma3-1b", "minitron-8b",
-          "phi-3-vision-4.2b", "mamba2-370m")
+# architectures whose layers the port runs: all ten
+PORTED = ("minicpm-2b", "whisper-tiny", "phi3-mini-3.8b", "gemma3-1b",
+          "minitron-8b", "phi-3-vision-4.2b", "zamba2-1.2b",
+          "llama4-scout-17b-a16e", "mamba2-370m", "mixtral-8x22b")
 
 
 def _ids(c):
@@ -37,6 +36,7 @@ def _prop(cfg, name):
 
 def test_registry_matches():
     assert ARCH_IDS == J_ARCH_IDS
+    assert sorted(PORTED) == sorted(ARCH_IDS)
     assert INPUT_SHAPES == J_INPUT_SHAPES
 
 
@@ -69,10 +69,6 @@ def _shape_tree(tree):
 def test_init_params_shape_tree_matches_jax(case):
     arch, reduced = case
     tc = get_config(arch, reduced)
-    if arch not in PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            init_params(tc, device="meta")
-        return
     jc = j_get_config(arch, reduced)
     want = jax.eval_shape(lambda k: j_init_params(jc, k),
                           jax.random.PRNGKey(0))

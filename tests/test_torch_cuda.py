@@ -72,6 +72,36 @@ def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", [
+    # (B, Sq, Sk, Hq, Hkv, hd, causal, window) at hd 256: gemma3-1b's join
+    # at bucket 8 (4 heads over 1 KV head), its local window of 512 on a
+    # prompt past it, a non-causal one, one query over 1500 keys, Sq < Sk
+    (8, 512, 512, 4, 1, 256, True, 0),
+    (1, 1100, 1100, 4, 1, 256, True, 512),
+    (2, 300, 300, 4, 1, 256, False, 0),
+    (2, 1, 1500, 4, 1, 256, False, 0),
+    (1, 77, 200, 4, 1, 256, True, 0),
+], ids=str)
+def test_flash_attention_kernel_matches_plain_at_hd256(cuda, case, dtype):
+    """The hd 256 instances: bf16 splits the output columns between its two
+    warpgroups over a three-stage ring; f32 is the CUDA-core kernel."""
+    test_flash_attention_kernel_matches_plain(cuda, case, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", [
+    # (B, L, Hq, Hkv, hd, valid_len): gemma3-1b's decode (G = 4 at hd 256,
+    # G * hd = 1024) at buckets 8 and 1, and rows with valid_len = 0
+    (8, 544, 4, 1, 256, [544, 0, 1, 300, 64, 65, 543, 128]),
+    (1, 544, 4, 1, 256, [544]),
+    (2, 1100, 4, 1, 256, [0, 1100]),
+    (3, 200, 8, 2, 256, [200, 7, 0]),
+], ids=str)
+def test_decode_attention_kernel_matches_plain_at_hd256(cuda, case, dtype):
+    test_decode_attention_split_kernel_matches_plain(cuda, case, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("case", [(3, 300, 6, 3, 64), (2, 33, 4, 4, 72),
                                   (2, 200, 8, 1, 128)], ids=str)
 def test_decode_attention_kernel_matches_plain(cuda, case, dtype):
@@ -265,12 +295,15 @@ def test_mamba_decoder_on_the_card_matches_the_cpu(cuda):
     assert after["attention"] == before["attention"]
 
 
-@pytest.mark.parametrize("src,kernel", [("flash_attention", "fa_kernel_wgmma"),
-                                        ("ssd_scan", "ssd_kernel_wgmma")])
+@pytest.mark.parametrize("src,kernel", [
+    ("flash_attention", "fa_kernel_wgmma"),
+    ("flash_attention", "fa_kernel_wgmmaILi256E"),    # the hd 256 instance
+    ("ssd_scan", "ssd_kernel_wgmma")])
 def test_bf16_kernels_run_their_products_on_the_tensor_cores(cuda, src,
                                                               kernel):
     """The bf16 flash and SSD kernels, built from csrc with the shared
-    ``hopper.cuh`` helpers, hold HGMMA instructions in their SASS."""
+    ``hopper.cuh`` helpers, hold HGMMA instructions in their SASS (the
+    flash instance at hd 256 too)."""
     import shutil
     import subprocess
 
@@ -322,3 +355,71 @@ def test_simulate_torch_batched_on_the_card(cuda, arch):
             if arch == "minicpm-2b"
             else {"attention": 0, "decode_attention": 0, "ssd": joins})
     assert got == want
+
+
+def _on_both(cfg, run):
+    """``run(cfg, params, device)`` on the CPU and on the card with the
+    same weights (made on the CPU); returns both results on the CPU."""
+    p_cpu = init_params(cfg, seed=0, device="cpu")
+
+    def to(tree, dev):
+        if isinstance(tree, dict):
+            return {k: to(v, dev) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v, dev) for v in tree]
+        return tree.to(dev)
+
+    return {dev: to(run(cfg, p, dev), "cpu")
+            for dev, p in (("cpu", p_cpu), ("cuda", to(p_cpu, "cuda")))}
+
+
+def test_moe_decoder_on_the_card_matches_the_cpu(cuda):
+    """mixtral-8x22b reduced in float32 (top-2 of 4 experts, sliding window
+    64, wrapped by the prompt): the MoE FFN is plain PyTorch on both
+    devices, the attention goes through the kernels on the card."""
+    cfg = get_config("mixtral-8x22b", reduced=True).with_(
+        compute_dtype="float32", param_dtype="float32")
+    toks = torch.randint(0, cfg.vocab_size, (2, 80),
+                         generator=torch.Generator().manual_seed(0))
+
+    def run(cfg, p, dev):
+        lg, cache = prefill(cfg, p, toks.to(dev), init_cache(cfg, 2, 84, dev))
+        t = torch.tensor([80, 71], dtype=torch.int32, device=dev)
+        l1, _ = decode_step_ragged(cfg, p, cache, lg.argmax(-1), t)
+        return [lg, l1]
+
+    before = ops.launch_counts()
+    out = _on_both(cfg, run)
+    after = ops.launch_counts()
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
+    # a sliding-window ring decodes on the masked plain path, as in JAX
+    assert after["attention"] - before["attention"] == cfg.n_layers
+    assert after["decode_attention"] == before["decode_attention"]
+
+
+def test_whisper_step_on_the_card_matches_the_cpu(cuda):
+    """whisper-tiny reduced in float32: the encoder's non-causal flash, the
+    decoder's causal and cross-attention flash in prefill, then a decode
+    step whose cross-attention is the flash kernel with one query."""
+    cfg = get_config("whisper-tiny", reduced=True).with_(
+        compute_dtype="float32", param_dtype="float32")
+    gen = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 12), generator=gen)
+    fe = torch.randn(2, cfg.n_frontend_tokens, cfg.d_model, generator=gen)
+
+    def run(cfg, p, dev):
+        lg, cache = prefill(cfg, p, toks.to(dev), init_cache(cfg, 2, 16, dev),
+                            fe.to(dev))
+        t = torch.tensor([12, 9], dtype=torch.int32, device=dev)
+        l1, _ = decode_step_ragged(cfg, p, cache, lg.argmax(-1), t)
+        return [lg, l1]
+
+    before = ops.launch_counts()
+    out = _on_both(cfg, run)
+    after = ops.launch_counts()
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
+    n_enc, n_dec = cfg.n_enc_layers, cfg.n_layers
+    assert after["attention"] - before["attention"] == n_enc + 3 * n_dec
+    assert after["decode_attention"] - before["decode_attention"] == n_dec

@@ -169,15 +169,30 @@ def test_bf16_minicpm_reduced_matches_jax():
 @pytest.mark.parametrize("arch", ["mixtral-8x22b", "whisper-tiny",
                                   "zamba2-1.2b"])
 def test_unported_layers_raise_naming_their_roadmap_item(arch):
+    """The layers these architectures were once refused for (mixture of
+    experts, the encoder and cross-attention, zamba2's shared attention)
+    are ported: they build, cache and run, and no model raises
+    ``NotImplementedError`` any more."""
     cfg = get_config(arch, reduced=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_cache(cfg, 1, 8, device="cpu")
+    p = init_params(cfg, device="cpu")
+    cache = init_cache(cfg, 1, 8, device="cpu")
+    fe = (torch.zeros((1, cfg.n_frontend_tokens, cfg.d_model))
+          if cfg.frontend else None)
+    lg, _ = prefill(cfg, p, torch.zeros((1, 4), dtype=torch.long), cache,
+                    fe)
+    assert lg.shape == (1, 1, cfg.vocab_padded)
+    assert torch.isfinite(lg.float()).all()
 
 
 def test_frontend_models_refuse_forward():
+    """A VLM's forward now takes its frontend embeddings ahead of the text;
+    what still refuses a frontend model is continuous batching, as in the
+    JAX package (its slot slab carries no per-request frames)."""
+    from repro_torch.serving import ContinuousTorchExecutor, ServedModel
     cfg = get_config("phi-3-vision-4.2b", reduced=True)
     p = init_params(cfg, device="cpu")
+    fe = torch.zeros((1, cfg.n_frontend_tokens, cfg.d_model))
+    lg, _ = forward(cfg, p, torch.zeros((1, 4), dtype=torch.long), fe)
+    assert lg.shape == (1, cfg.n_frontend_tokens + 4, cfg.vocab_padded)
     with pytest.raises(NotImplementedError, match="frontend"):
-        forward(cfg, p, torch.zeros((1, 4), dtype=torch.long))
+        ContinuousTorchExecutor({"gen": ServedModel(cfg)}, device="cpu")

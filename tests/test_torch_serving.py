@@ -161,3 +161,99 @@ def test_serve_on_cpu_answers_every_request():
         <= rep["latency_p99_s"]
     assert 0 < rep["token_gap_p50_s"] <= rep["token_gap_p99_s"]
     assert set(rep["bucket_admit_ms"]) == {1, 2, 4}
+
+
+# -- what the timed regions hold ---------------------------------------------
+
+HOUR = 3600.0
+
+
+@pytest.fixture
+def clock(monkeypatch):
+    """The executors' clock, advanced by an hour wherever a test says so:
+    an hour seen in a measured time is the marked work inside its timed
+    region."""
+    from repro_torch.serving import executor as texec
+    skew = [0.0]
+    real = texec.time.perf_counter
+
+    class Clock:
+        @staticmethod
+        def perf_counter():
+            return real() + skew[0]
+
+    monkeypatch.setattr(texec, "time", Clock)
+
+    def advance_in(fn):
+        def wrapped(*a, **kw):
+            skew[0] += HOUR
+            return fn(*a, **kw)
+        return wrapped
+
+    return texec, advance_in
+
+
+def _served(texec):
+    cfg = get_config("mamba2-370m", reduced=True).with_(**F32)
+    return {"gen": texec.ServedModel(cfg, prompt_len=4, gen_len=1)}
+
+
+def test_a_run_or_a_join_times_its_prompt_draw(clock, monkeypatch):
+    """As in the JAX package, the prompt's draw (and its copy to the
+    device) falls inside the timed region of ``ModelInstance.run``, a
+    windowed batch and a continuous join."""
+    texec, advance_in = clock
+    monkeypatch.setattr(texec, "prompt_tokens",
+                        advance_in(texec.prompt_tokens))
+    ex = texec.TorchModelExecutor(_served(texec), device="cpu")
+    inst = ex.ensure_instance("gen")
+    assert inst.setup_seconds < HOUR
+    assert inst.run(seed=1) >= HOUR
+    assert inst.run_tokens(np.zeros((1, 4), np.int64)) < HOUR
+    bex = texec.BatchingTorchExecutor(_served(texec), max_batch=2,
+                                      device="cpu")
+    inv = types.Invocation(request=types.Request(
+        dag=types.DagSpec("d", (types.FunctionSpec("gen", 0.1),)),
+        arrival_time=0.0), fn=types.FunctionSpec("gen", 0.1), ready_time=0.0)
+    assert bex.run_batch("gen", [inv]) >= HOUR
+    cex = texec.ContinuousTorchExecutor(_served(texec), max_batch=2,
+                                        device="cpu")
+    assert cex.admit("gen", [inv], [0]) >= HOUR
+    assert cex._admit_tokens("gen", np.zeros((1, 4), np.int64), [1]) < HOUR
+    assert cex.step("gen", [0, 1]) < HOUR
+
+
+def test_the_kernel_build_is_never_a_sandbox_set_up(clock, monkeypatch):
+    """The executors build the kernels before a sandbox's set-up clock
+    starts: the build counts in ``build_seconds``, never in
+    ``setup_seconds`` (the modeled cold start)."""
+    texec, advance_in = clock
+    monkeypatch.setattr(texec, "build_kernels",
+                        advance_in(lambda device: HOUR))
+    ex = texec.TorchModelExecutor(_served(texec), device="cpu")
+    bex = texec.BatchingTorchExecutor(_served(texec), max_batch=2,
+                                      device="cpu")
+    cex = texec.ContinuousTorchExecutor(_served(texec), max_batch=2,
+                                        device="cpu")
+    specs = [e.calibrate(runs=1)["gen"] for e in (ex, bex, cex)]
+    for e, spec in zip((ex, bex, cex), specs):
+        assert e.build_seconds >= HOUR
+        assert spec.setup_time < HOUR and spec.exec_time < HOUR
+    assert all(i.setup_seconds < HOUR for i in bex._instances.values())
+
+
+def test_finiteness_is_noted_after_the_clock_stops(clock, monkeypatch):
+    """The continuous executor's ``isfinite`` bookkeeping runs after a
+    join's or step's clock stops, on the logits kept for it, and
+    ``logits_finite`` keeps its meaning."""
+    texec, advance_in = clock
+    cls = texec.ContinuousTorchExecutor
+    monkeypatch.setattr(cls, "_note_finite", advance_in(cls._note_finite))
+    cex = cls(_served(texec), max_batch=2, device="cpu")
+    assert cex._admit_seeded("gen", [3], [0]) < HOUR
+    assert cex.step("gen", [0]) < HOUR
+    st = cex._state["gen"]
+    assert st.logits is None and cex.logits_finite("gen")
+    st.params["embed"][:] = float("nan")
+    cex.step("gen", [0])
+    assert not cex.logits_finite("gen")
