@@ -34,7 +34,16 @@ layers, which is what fits the card) through ``serve()``, or through
 batching refuses, holding each kernel's launches to the model's groups.
 Phase 10 serves ``multitenant_apps``' four tenants at published width under
 ``archipelago`` on windowed ``torch-batched``: every request once, each DAG
-in order, each model's launches.  Any failed phase raises and the script
+in order, each model's launches.  Phase 11 trains: each kernel's autograd
+Function (the kernel forward, the backward recomputed through
+``kernels/ref.py``) against autograd through its plain version; for each
+main path, the ``lm_loss`` gradient of every leaf on two full-width layers
+in float32, card against CPU; then eight AdamW steps at full width and
+depth through ``launch.train``'s ``Trainer`` (B 4 x S 512 of
+``SyntheticLM``), asserting finite, falling losses, a finite non-zero
+gradient on every leaf, every leaf changed, each kernel launched twice a
+layer a step (forward and remat recompute), and profiling one more step.
+Any failed phase raises and the script
 exits non-zero.  The second-to-last line of output is a JSON object
 ``{"kernels": [...]}`` (times, bounds, launches); the last line is
 ``{"ok": true, "device": {...}}``.  A full report is written to
@@ -46,6 +55,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import shutil
 import subprocess
@@ -161,6 +171,49 @@ SSD_CASES = [
     (2, 1100, 4, 64, 128, 64, True),
 ]
 
+# Phase 11, training.  (a) Each kernel's autograd Function (kernel forward,
+# backward through kernels/ref.py) against autograd through the plain
+# version on the same inputs: the forward output within TOL (SSD_TOL for the
+# scan's y and state), as in phase 3, and the gradients within GRAD_TOL of
+# max |grad| per input.  Flash's backward is the plain version's own, so
+# only the bf16 rounding of the incoming gradient may differ; the SSD
+# reference forms x·dt in the input dtype where the plain version widens it
+# first (on the CPU, bf16 up to 7e-3 and f32 up to 1.1e-5, the A gradient).
+# tests/test_torch_cuda.py reads these tolerances from here.
+GRAD_TOL = {"flash_attention": {"bfloat16": 1e-2, "float32": 1e-5},
+            "ssd_scan": {"bfloat16": 2e-2, "float32": 1e-4}}
+# (B, Sq, Sk, Hq, Hkv, hd, causal, window): causal, sliding window,
+# non-causal over other keys (cross) and GQA at hd 64, 128 and 256, then
+# minicpm-2b's training shape (B 4 x S 512, 36 heads of 64)
+TRAIN_FA_CASES = [(B, Sq, Sk, Hq, Hkv, hd, causal, w)
+                  for B, Sq, Sk, Hq, Hkv, causal, w in (
+                      (2, 256, 256, 8, 8, True, 0),
+                      (2, 256, 256, 8, 8, True, 100),
+                      (2, 64, 300, 8, 8, False, 0),
+                      (2, 256, 256, 8, 2, True, 0))
+                  for hd in (64, 128, 256)] + [(4, 512, 512, 36, 36, 64,
+                                                True, 0)]
+# (B, S, H, P, N, chunk): S a multiple of the chunk, and not; then
+# mamba2-370m's training shape (B 4 x S 512, 32 heads: the bf16 kernel
+# splits each (b, h)'s 8 chunks over 2 CTAs, which no serving bucket does)
+TRAIN_SSD_CASES = [(2, 512, 8, 64, 128, 64), (2, 300, 8, 64, 128, 64),
+                   (4, 512, 32, 64, 128, 64)]
+# (b) lm_loss gradients of every leaf, card (kernels) vs CPU (plain), f32,
+# max |Δg| / max |g| per leaf: both sides in float32 (TF32 off), summed in
+# other orders through two full-width layers and the vocabulary
+MODEL_GRAD_TOL = 1e-3
+# (c) AdamW steps at full width and depth, B x S from SyntheticLM.  The
+# schedule over 8 steps warms up in one: WSD (minicpm-2b) runs at the peak
+# for steps 1-7 and a tenth of it at step 8, cosine (mamba2-370m) decays
+# from step 1.  Peak learning rates: mamba2-370m at the launcher's default
+# 1e-3; minicpm-2b at make_train_step's default 3e-4.  The runs are
+# deterministic; `python -m repro_torch.launch.train --full --steps 8
+# --batch 4 --seq 512 --lr LR` on the H100 took minicpm-2b's loss from
+# 12.1588 to 13.3239 at 1e-3, 11.8323 at 3e-4, 11.9331 at 1e-4 and
+# 12.3439 at 5e-5, and mamba2-370m's from 11.0341 to 10.1755 at 1e-3.
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 4, 512
+TRAIN_LR = {"minicpm-2b": 3e-4, "mamba2-370m": 1e-3}
+
 
 def log(*a) -> None:
     print(*a, flush=True)
@@ -253,6 +306,15 @@ def windowed_launches(be, served: Dict[str, Any],
         for op in want:
             want[op] += join[op] * prefills + step[op] * steps
     return want
+
+
+def release(backend) -> None:
+    """Let go of a backend's models (weights, caches) once its run is read.
+    The control plane's objects refer to each other (each SGS holds the
+    backend's ``drop_invocations``), so a finished simulation waits for the
+    cycle collector, and the models on the card with it."""
+    for held in ("_instances", "_state"):
+        getattr(backend.executor, held, {}).clear()
 
 
 def tree_to(tree, dev):
@@ -442,6 +504,7 @@ def scheduler_phase(dev, chat_cfg, ssm_cfg, smi: str, prompt_len: int = 512,
            "occupancy": occupancy, "launches": got,
            "bucket_admit_s": {str(k): v for k, v in ex.bucket_admit_s.items()},
            "bucket_step_s": {str(k): v for k, v in ex.bucket_step_s.items()}}
+    release(backend)
     del backend, ex, exp
 
     # mamba2-370m alone: every prefill (set-up, calibration, serving) runs
@@ -468,6 +531,7 @@ def scheduler_phase(dev, chat_cfg, ssm_cfg, smi: str, prompt_len: int = 512,
                                  f"{want}")
         out[tag] = {"result": r.detach_sim().to_dict(), "launches": got,
                     "prefills": prefills}
+        release(be)
     return out
 
 
@@ -553,6 +617,7 @@ def zoo_phase(dev, smi: str, zoo, *, parity_len: int = 130,
                 f"batches, latency p50 {st.p50 * 1e3:.1f} ms p99 "
                 f"{st.p99 * 1e3:.1f} ms")
             res = {"result": r.detach_sim().to_dict()}
+            release(be)
             del be
         log(f"[zoo] {name}: launches {got} (per prefill {join}, per step "
             f"{step}); peak memory "
@@ -624,7 +689,10 @@ def multitenant_phase(dev, smi: str, apps, *, duration: float, rps: float,
         return run_batch(fn, invs)
 
     ex.run_batch = counted
-    r = simulate(exp)
+    try:
+        r = simulate(exp)
+    finally:
+        del ex.run_batch        # the wrapper and the executor: a cycle
     got = kops.launch_counts()
     wall = time.perf_counter() - t0
     check_served("phase 10", r)
@@ -670,6 +738,220 @@ def multitenant_phase(dev, smi: str, apps, *, duration: float, rps: float,
                              for (fn, b), v in ex.bucket_exec_s.items()}}
     if on_card:
         out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    release(be)
+    return out
+
+
+def function_grad_parity(dev) -> Dict[str, Any]:
+    """Phase 11 (a): each kernel's Function against its plain version on
+    the same inputs and cotangent, bf16 and f32: the forward output (the
+    kernel, launched under autograd) and the gradients; raises past
+    ``TOL`` / ``SSD_TOL`` or ``GRAD_TOL``.  Returns, per kernel and dtype,
+    the largest forward error and relative gradient error, and the errors
+    at the training shape (each table's last case)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def run(f, inputs, w):
+        """f's outputs (a tuple) and the gradients of sum(w * y[0])."""
+        xs = [t.detach().requires_grad_(True) for t in inputs]
+        out = f(*xs)
+        out = out if isinstance(out, tuple) else (out,)
+        return out, torch.autograd.grad((out[0].float() * w).sum(), xs)
+
+    cases = []
+    for c in TRAIN_FA_CASES:
+        B, Sq, Sk, Hq, Hkv, hd, causal, win = c
+        kw = dict(causal=causal, window=win)
+        cases.append((
+            "flash_attention", c, flash_attention,
+            lambda q, k, v, kw=kw: flash_attention(q, k, v, **kw),
+            lambda q, k, v, kw=kw: flash_attention_plain(q, k, v, **kw),
+            lambda dt, s=(B, Sq, Sk, Hq, Hkv, hd): [
+                rnd(s[0], s[1], s[3], s[5], dtype=dt),
+                rnd(s[0], s[2], s[4], s[5], dtype=dt),
+                rnd(s[0], s[2], s[4], s[5], dtype=dt)],
+            (B, Sq, Hq, hd), lambda dn: (TOL[dn],)))
+    for c in TRAIN_SSD_CASES:
+        B, S, H, P, N, Q = c
+        cases.append((
+            "ssd_scan", c, ssd_scan,
+            lambda *a, Q=Q: ssd_scan(*a, chunk=Q),
+            lambda *a, Q=Q: ssd_scan_plain(*a, chunk=Q),
+            lambda dt, s=(B, S, H, P, N): [
+                rnd(s[0], s[1], s[2], s[3], dtype=dt),
+                F.softplus(rnd(s[0], s[1], s[2])).to(dt),
+                -torch.exp(0.5 * rnd(s[2])),
+                rnd(s[0], s[1], s[4], dtype=dt),
+                rnd(s[0], s[1], s[4], dtype=dt)],
+            (B, S, H, P), lambda dn: SSD_TOL[dn]))
+    last = {"flash_attention": TRAIN_FA_CASES[-1],
+            "ssd_scan": TRAIN_SSD_CASES[-1]}
+    worst: Dict[str, Any] = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        for kname, case, wrapper, fn, plain, make, out_shape, tols in cases:
+            inputs, w = make(dtype), rnd(*out_shape)
+            before = wrapper.launches
+            out_fn, g_fn = run(fn, inputs, w)
+            launched = wrapper.launches - before
+            out_plain, g_plain = run(plain, inputs, w)
+            torch.cuda.synchronize()
+            fwd, bad = [], 0
+            for a, b, tol in zip(out_fn, out_plain, tols(dn)):
+                err = (a.float() - b.float()).abs()
+                fwd.append(err.max().item())
+                bad += (err > tol + tol * b.float().abs()).sum().item()
+            grad = [((a.float() - b.float()).abs().max()
+                     / b.float().abs().max()).item()
+                    for a, b in zip(g_fn, g_plain)]
+            log(f"[train] {kname} {case} {dn}: forward max_abs_err "
+                + ", ".join(f"{e:.3g}" for e in fwd) + " (tol "
+                + ", ".join(map(str, tols(dn))) + " + tol * |plain|); "
+                "gradient max |diff| / max |plain| per input "
+                + ", ".join(f"{e:.3g}" for e in grad)
+                + f" (tol {GRAD_TOL[kname][dn]})")
+            if bad or launched != 1:
+                raise AssertionError(f"phase 11: {kname} {case} {dn}: {bad} "
+                                     f"forward elements outside tolerance, "
+                                     f"{launched} launches")
+            if any(not e <= GRAD_TOL[kname][dn] for e in grad) or any(
+                    a.dtype != t.dtype for a, t in zip(g_fn, inputs)):
+                raise AssertionError(f"phase 11: {kname} {case} {dn} "
+                                     f"gradients {grad}")
+            key = worst.setdefault(kname, {}).setdefault(dn, {
+                "max_abs_err": 0.0, "max_rel_grad_err": 0.0})
+            key["max_abs_err"] = max(key["max_abs_err"], fwd[0])
+            key["max_rel_grad_err"] = max(key["max_rel_grad_err"], max(grad))
+            if case == last[kname]:
+                key["train_shape"] = {"case": case, "max_abs_err": fwd,
+                                      "max_rel_grad_err": grad}
+    return worst
+
+
+def model_grad_parity(cfg, dev, S: int) -> Dict[str, Any]:
+    """Phase 11 (b): ``lm_loss`` and the gradient of every leaf on the card
+    (kernels, remat) against the same weights on the CPU (plain versions),
+    float32, B = 2 x S tokens; raises past ``MODEL_GRAD_TOL``."""
+    import torch
+    from repro_torch.models import init_params, lm_loss
+    from repro_torch.train.tree import leaves_with_paths
+    params = {"card": init_params(cfg, seed=0, device=dev)}
+    params["cpu"] = tree_to(params["card"], "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, S),
+                         generator=torch.Generator().manual_seed(2))
+    got = {}
+    for d, p in params.items():
+        paths, flat = zip(*leaves_with_paths(p))
+        for t in flat:
+            t.requires_grad_(True)
+        loss = lm_loss(cfg, p, toks.to(flat[0].device))
+        got[d] = (loss.item(), dict(zip(
+            ("/".join(x) for x in paths),
+            (g.cpu() for g in torch.autograd.grad(loss, flat)))))
+    worst, worst_key = 0.0, None
+    for key, g in got["cpu"][1].items():
+        gc = got["card"][1][key]
+        scale = g.abs().max().item()
+        err = (gc - g).abs().max().item() / scale if scale else float("inf")
+        if not (err <= MODEL_GRAD_TOL and torch.isfinite(gc).all()):
+            raise AssertionError(f"phase 11: {cfg.name} gradient of {key} "
+                                 f"differs by {err:.3g} of max |g| {scale}")
+        if err >= worst:
+            worst, worst_key = err, key
+    rel_loss = abs(got["card"][0] - got["cpu"][0]) / abs(got["cpu"][0])
+    if rel_loss > 1e-4:
+        raise AssertionError(f"phase 11: {cfg.name} loss {got['card'][0]} "
+                             f"on the card, {got['cpu'][0]} on the CPU")
+    return {"loss_card": got["card"][0], "loss_cpu": got["cpu"][0],
+            "rel_loss_diff": rel_loss, "n_leaves": len(got["cpu"][1]),
+            "max_rel_grad_diff": worst, "worst_leaf": worst_key}
+
+
+def train_run(cfg, dev, smi: str, *, steps: int, batch: int, seq: int,
+              lr: float) -> Dict[str, Any]:
+    """Phase 11 (c): ``launch.train``'s ``Trainer`` for ``steps`` AdamW
+    steps on ``SyntheticLM`` batches.  Asserts finite losses, the last
+    below the first, a finite non-zero gradient on every leaf (the first
+    step's first moment is a tenth of its clipped gradient), every leaf
+    changed, and each kernel launched twice a layer a step (forward and
+    remat recompute).  Then times one more step under the profiler, as
+    phase 7 does."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.train import Trainer
+    from repro_torch.train.tree import leaves_with_paths
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, steps=steps, batch=batch, seq=seq, lr=lr, device=dev)
+    start = {"/".join(p): t.detach().to("cpu", copy=True)
+             for p, t in leaves_with_paths(tr.params)}
+    per_layer = {"attention": sum(g.count for g in cfg.groups()
+                                  if g.kind != "mamba"),
+                 "decode_attention": 0,
+                 "ssd": sum(g.count for g in cfg.groups()
+                            if g.kind == "mamba")}
+    losses, secs = [], []
+    kops.reset_launch_counts()
+    for step in range(steps):
+        before = kops.launch_counts()
+        loss, sec = tr.step(tr.data.batch(step))
+        after = kops.launch_counts()
+        losses.append(loss)
+        secs.append(sec)
+        got = {op: after[op] - before[op] for op in after}
+        want = {op: 2 * n for op, n in per_layer.items()}
+        if got != want:
+            raise AssertionError(f"phase 11: {cfg.name} step {step} "
+                                 f"launches {got}, expected {want}")
+        if step == 0:
+            for path, m in leaves_with_paths(tr.opt.mu):
+                if not (torch.isfinite(m).all() and m.abs().max() > 0):
+                    raise AssertionError(f"phase 11: {cfg.name} gradient "
+                                         f"of {'/'.join(path)} is not "
+                                         f"finite and non-zero")
+    launches = kops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"[train] {cfg.name}: losses " + " ".join(f"{x:.4f}" for x in
+                                                  losses))
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < \
+            losses[0]:
+        raise AssertionError(f"phase 11: {cfg.name} losses {losses}")
+    unchanged = [k for k, t in leaves_with_paths(tr.params)
+                 if torch.equal(t.detach().cpu(), start["/".join(k)])]
+    if unchanged:
+        raise AssertionError(f"phase 11: {cfg.name} leaves unchanged by "
+                             f"training: {unchanged[:8]}")
+    wall_ms = sorted(secs[1:])[len(secs[1:]) // 2] * 1e3
+    batch_np = tr.data.batch(steps)
+    prof = device_profile(lambda: tr.step(batch_np)[1], runs=1)
+    idle = (1 - prof["device_busy_ms"] / wall_ms
+            if prof["device_busy_ms"] else None)
+    prof.update(unprofiled_ms=wall_ms, idle_share=idle)
+    tps = tr.tokens_per_step / (wall_ms / 1e3)
+    log(f"[train] {cfg.name} B {batch} x S {tr.data.cfg.seq_len}: step "
+        f"{wall_ms:.1f} ms (median of steps 2-{steps}; first "
+        f"{secs[0] * 1e3:.1f} ms), {tps:,.0f} tokens/s, peak memory "
+        f"{peak / 2**30:.2f} GiB; profiled step: device busy "
+        f"{prof['device_busy_ms']:.1f} ms (idle share "
+        f"{'not measured' if idle is None else f'{idle:.2f}'}), "
+        f"{prof['launch_calls']:.0f} kernel launch calls; top kernels "
+        f"(ms): " + ", ".join(f"{n[:40]} {t:.2f}" for n, t in prof["top"])
+        + f"; launches {launches}; {smi}")
+    out = {"losses": losses, "step_ms": [x * 1e3 for x in secs],
+           "median_step_ms": wall_ms, "tokens_per_s": tps,
+           "peak_memory_bytes": peak, "launches": launches,
+           "profile": prof, "phase_s": time.perf_counter() - t0}
+    del tr, start
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1148,6 +1430,25 @@ def main() -> int:
         duration=MT_DURATION, rps=MT_RPS)
     torch.cuda.empty_cache()
 
+    # -- 11. training on the card ---------------------------------------------------
+    log(f"[train] {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB "
+        f"allocated before phase 11")
+    report["train"] = {"function_grad": function_grad_parity(dev)}
+    for model, S_par in paths:
+        f32cfg = get_config(model).with_(n_layers=2, compute_dtype="float32",
+                                         param_dtype="float32")
+        par = model_grad_parity(f32cfg, dev, S_par)
+        log(f"[train] {model} full width, 2 layers, f32, B=2 S={S_par}: "
+            f"lm_loss {par['loss_card']:.6f} card / {par['loss_cpu']:.6f} "
+            f"CPU; max |grad diff| / max |grad| over {par['n_leaves']} "
+            f"leaves {par['max_rel_grad_diff']:.3g} ({par['worst_leaf']}; "
+            f"bound {MODEL_GRAD_TOL})")
+        torch.cuda.empty_cache()
+        run = train_run(get_config(model), dev, smi, steps=TRAIN_STEPS,
+                        batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                        lr=TRAIN_LR[model])
+        report["train"][model] = {"grad_parity": par, **run}
+
     # -- result -------------------------------------------------------------------
     # each kernel: its launches over all of serve() on its own path, and the
     # error and times at its serving shape
@@ -1179,7 +1480,18 @@ def main() -> int:
                         # this slice's path: phase 10's multi-tenant run
                         "launches_multitenant":
                             report["multitenant"]["launches"][op],
+                        # phase 11's training steps of the model
+                        **({"launches_train": report["train"][model][
+                            "launches"][op]} if op != "decode_attention"
+                           else {}),
                         "max_abs_err": errs[kname][(case, "bfloat16")],
+                        # phase 11 (a): bf16, under autograd, at the
+                        # training shape
+                        **({"max_abs_err_train": report["train"][
+                            "function_grad"][kname]["bfloat16"][
+                            "train_shape"]["max_abs_err"][0]}
+                           if kname in report["train"]["function_grad"]
+                           else {}),
                         "ms": tm["ms"], "plain_ms": tm["plain_ms"],
                         "bound_ms": tm["bound_ms"],
                         "bound_by": tm["bound_by"],

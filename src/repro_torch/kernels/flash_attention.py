@@ -6,6 +6,14 @@ Replaces the Pallas TPU kernel ``src/repro/kernels/flash_attention.py``
 the implementation from the device of its inputs: CPU tensors go to
 :func:`flash_attention_plain`, CUDA tensors launch the kernel or raise.
 ``flash_attention.launches`` counts kernel launches.
+
+Training: when grad is enabled and q, k or v requires it, a CUDA call goes
+through :class:`FlashAttentionFn`, whose forward is the same kernel launch
+and whose backward recomputes ``ref.flash_attention_ref`` under autograd.
+The JAX package has no backward kernel to port (``src/repro/kernels`` holds
+no ``custom_vjp``; its training differentiates the reference ops).  Without
+a gradient to carry (serving) the kernel is called directly, with no
+``autograd.Function`` in the way.
 """
 from __future__ import annotations
 
@@ -55,13 +63,48 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                              "16-byte aligned tensors")
 
 
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention with a gradient: ``forward(q, k, v, causal, window)``
+    (the kernel launch on the card) and a backward that recomputes
+    ``flash_attention_ref`` on the saved inputs under autograd.  The
+    tests' gradient checks pass the plain version as ``forward``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, forward):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return forward(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            out = flash_attention_ref(*inputs, causal=ctx.causal,
+                                      window=ctx.window)
+            got = iter(torch.autograd.grad(out, wanted, g))
+        return tuple(next(got) if t.requires_grad else None
+                     for t in inputs) + (None, None, None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q (B,Sq,Hq,hd), k/v (B,Sk,Hkv,hd) -> (B,Sq,Hq,hd), queries aligned
     to the end of K.  CPU tensors: the plain version; CUDA tensors: the
-    kernel."""
+    kernel, inside :class:`FlashAttentionFn` when a gradient is to be
+    carried."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, window, _launch)
+    return _launch(q, k, v, causal=causal, window=window)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+            causal: bool, window: int) -> torch.Tensor:
+    """The kernel on CUDA tensors; counts the launch."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda tensors, "
                          f"got {q.device}")

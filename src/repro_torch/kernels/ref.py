@@ -1,7 +1,9 @@
 """Plain PyTorch oracles for every kernel.
 
 Port of ``src/repro/kernels/ref.py``: the same contracts, computed in
-float32 and cast back to the input's dtype.  ``decode_attention_ref`` keeps
+float32 and cast back to the input's dtype (float64 inputs stay float64, so
+that ``torch.autograd.gradcheck`` can hold the kernels' backward, which
+recomputes these functions).  ``decode_attention_ref`` keeps
 the JAX oracle's behaviour for ``valid_len = 0`` (every key is masked, so the
 softmax is uniform and the result is the mean of V); the kernel, and its
 plain version in ``kernels/decode_attention.py``, return zeros there instead.
@@ -25,8 +27,9 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, Sq, Hq, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
-    qg = q.reshape(B, Sq, Hkv, G, hd).to(f32)
-    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k.to(f32)) / math.sqrt(hd)
+    acc = torch.promote_types(q.dtype, f32)
+    qg = q.reshape(B, Sq, Hkv, G, hd).to(acc)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k.to(acc)) / math.sqrt(hd)
     qp = torch.arange(Sq, device=q.device) + (Sk - Sq)
     kp = torch.arange(Sk, device=q.device)
     m = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
@@ -36,7 +39,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m &= (qp[:, None] - kp[None, :]) < window
     scores = torch.where(m, scores, NEG_INF)
     w = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgqs,bskd->bqkgd", w, v.to(f32))
+    out = torch.einsum("bkgqs,bskd->bqkgd", w, v.to(acc))
     return out.reshape(B, Sq, Hq, hd).to(q.dtype)
 
 

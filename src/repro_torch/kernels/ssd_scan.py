@@ -9,6 +9,13 @@ implementation from the device of its inputs: CPU tensors go to
 splits the chunks of each (b, h) across a thread-block cluster:
 :func:`ssd_plan` says how.
 
+Training: when grad is enabled and an input requires it, a CUDA call goes
+through :class:`SSDScanFn`, whose forward is the same kernel launch and
+whose backward recomputes ``ref.ssd_scan_ref`` (the chunked reference the
+JAX package's training differentiates; it has no backward kernel) under
+autograd.  Without a gradient to carry (serving) the kernel is called
+directly.
+
 Contract (``ops.ssd`` in the JAX package): x (B,S,H,P), dt (B,S,H) after
 softplus, A (H,) float32 and <= 0, Bm and Cm (B,S,N) shared by every head,
 an optional ``init_state`` (B,H,P,N) float32 -> y (B,S,H,P) in x's dtype
@@ -19,12 +26,14 @@ exp(0) = 1 and add nothing to it, and cut y back to S.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from . import _build
+from .ref import ssd_scan_ref
 from ..device import sm_count
 
 f32 = torch.float32
@@ -73,27 +82,31 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's function in plain PyTorch, with ``_ssd_kernel``'s
     numerics: every input widened to float32 (x·dt too), the decay math
-    and every product in float32, a loop over chunks carrying the state."""
+    and every product in float32, a loop over chunks carrying the state.
+    Float64 inputs stay float64 (gradient checks)."""
     B, S, H, P = x.shape
     N = Bm.shape[-1]
+    acc = torch.promote_types(x.dtype, f32)
     xp, dtp, Bp, Cp = _pad_to_chunk(x, dt, Bm, Cm, chunk)
     nc, Q = xp.shape[1] // chunk, chunk
-    dtf = dtp.to(f32).reshape(B, nc, Q, H)
-    xdt = xp.to(f32).reshape(B, nc, Q, H, P) * dtf[..., None]
-    Bf = Bp.to(f32).reshape(B, nc, Q, N)
-    Cf = Cp.to(f32).reshape(B, nc, Q, N)
-    cum = torch.cumsum(dtf * A.to(f32), dim=2)             # (B,nc,Q,H)
+    dtf = dtp.to(acc).reshape(B, nc, Q, H)
+    xdt = xp.to(acc).reshape(B, nc, Q, H, P) * dtf[..., None]
+    Bf = Bp.to(acc).reshape(B, nc, Q, N)
+    Cf = Cp.to(acc).reshape(B, nc, Q, N)
+    cum = torch.cumsum(dtf * A.to(acc), dim=2)             # (B,nc,Q,H)
     total = cum[:, :, -1]                                   # (B,nc,H)
     # intra-chunk: (exp(cum_i - cum_j) masked to i >= j) * C_i.B_j
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # (B,nc,Qi,Qj,H)
     live = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
-    L = torch.where(live[:, :, None], torch.exp(seg), 0.0)
+    # masked before the exp: above the diagonal seg is positive and its exp
+    # can overflow, which a mask after it would turn into a NaN gradient
+    L = torch.exp(torch.where(live[:, :, None], seg, -math.inf))
     scores = torch.einsum("bcin,bcjn->bcij", Cf, Bf)
     y_diag = torch.einsum("bcijh,bcjhp->bcihp", L * scores[..., None], xdt)
     decay_in = torch.exp(cum)
     decay_out = torch.exp(total[:, :, None, :] - cum)
-    state = (torch.zeros((B, H, P, N), dtype=f32, device=x.device)
-             if init_state is None else init_state.to(f32))
+    state = (torch.zeros((B, H, P, N), dtype=acc, device=x.device)
+             if init_state is None else init_state.to(acc))
     ys = []
     for c in range(nc):
         y_off = torch.einsum("bqhn,bhpn->bqhp",
@@ -105,7 +118,7 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                                * decay_out[:, c, ..., None])
         state = state * torch.exp(total[:, c])[..., None, None] + contrib
     y = (torch.stack(ys, dim=1).reshape(B, nc * Q, H, P) if ys
-         else torch.zeros((B, 0, H, P), dtype=f32, device=x.device))
+         else torch.zeros((B, 0, H, P), dtype=acc, device=x.device))
     return y[:, :S].to(x.dtype), state
 
 
@@ -149,16 +162,62 @@ def _check(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                              "aligned tensors")
 
 
+class SSDScanFn(torch.autograd.Function):
+    """The scan with a gradient: ``forward(x, dt, A, Bm, Cm, init_state,
+    chunk)`` (the kernel launch on the card) and a backward that recomputes
+    ``ssd_scan_ref`` on the saved inputs under autograd.  Either output's
+    gradient may be None: training discards the final state.  The tests'
+    gradient checks pass the plain version as ``forward``."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, init_state, chunk: int, forward):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, init_state)
+        ctx.chunk = chunk
+        return forward(x, dt, A, Bm, Cm, chunk=chunk, init_state=init_state)
+
+    @staticmethod
+    def backward(ctx, gy, gstate):
+        inputs = [None if t is None else t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors,
+                                     ctx.needs_input_grad[:6])]
+        wanted = [t for t in inputs if t is not None and t.requires_grad]
+        given = [i for i, g in enumerate((gy, gstate)) if g is not None]
+        if not given:
+            return (None,) * 8
+        with torch.enable_grad():
+            outs = ssd_scan_ref(*inputs[:5], ctx.chunk,
+                                init_state=inputs[5])
+            got = iter(torch.autograd.grad(
+                [outs[i] for i in given], wanted,
+                [(gy, gstate)[i] for i in given], allow_unused=True))
+        return tuple(next(got) if t is not None and t.requires_grad
+                     else None for t in inputs) + (None, None)
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int,
              init_state: Optional[torch.Tensor] = None,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B,S,H,P), dt (B,S,H), A (H,), Bm/Cm (B,S,N) -> (y (B,S,H,P),
     final state (B,H,P,N) float32).  CPU tensors: the plain version; CUDA
-    tensors: the kernel."""
+    tensors: the kernel, inside :class:`SSDScanFn` when a gradient is to
+    be carried."""
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk,
                               init_state=init_state)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, A, Bm, Cm, init_state)):
+        return SSDScanFn.apply(x, dt, A, Bm, Cm, init_state, chunk, _launch)
+    return _launch(x, dt, A, Bm, Cm, chunk=chunk, init_state=init_state)
+
+
+def _launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+            Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int,
+            init_state: Optional[torch.Tensor]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel on CUDA tensors; counts the launch."""
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on cpu or cuda tensors, got "
                          f"{x.device}")

@@ -85,8 +85,9 @@ class ModelConfig:
 
     # roofline probes: explicit layer-group override
     override_groups: Optional[Tuple[LayerGroup, ...]] = None
-    # kept for field parity with the JAX config (scan unrolling / remat are
-    # XLA concerns; the eager PyTorch loop ignores them)
+    # scan_unroll is kept for field parity with the JAX config and ignored
+    # (the layers run in an eager Python loop); remat is honoured: layer-
+    # boundary torch.utils.checkpoint when a gradient is carried
     scan_unroll: bool = False
     remat: bool = True
 

@@ -217,12 +217,14 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mamba2 SSD core over a whole sequence, the JAX package's chunked
     reference (its rounding too: x·dt is formed in the input dtype).
+    The rest is float32, float64 for float64 inputs (gradient checks).
 
     xh: (B,S,H,P)  dt: (B,S,H)  A: (H,) negative  Bm,Cm: (B,S,N)
     Returns (y: (B,S,H,P), final_state: (B,H,P,N) float32)."""
     Bsz, S, H, P = xh.shape
     N = Bm.shape[-1]
     S0 = S
+    acc = torch.promote_types(xh.dtype, f32)
     pad = (-S) % chunk
     if pad:
         # dt = 0 on padded steps: decay exp(0) = 1 and no input, so the
@@ -235,30 +237,30 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     nc = S // chunk
     x_c = xh.reshape(Bsz, nc, chunk, H, P)
     dt_c = dt.reshape(Bsz, nc, chunk, H)
-    B_c = Bm.reshape(Bsz, nc, chunk, N).to(f32)
-    C_c = Cm.reshape(Bsz, nc, chunk, N).to(f32)
+    B_c = Bm.reshape(Bsz, nc, chunk, N).to(acc)
+    C_c = Cm.reshape(Bsz, nc, chunk, N).to(acc)
 
     dA = dt_c * A[None, None, None, :]                       # (B,nc,Q,H)
     dA_hbt = dA.movedim(-1, 2)                               # (B,nc,H,Q)
-    L = torch.exp(_segsum(dA_hbt.to(f32)))                   # (B,nc,H,Q,Q)
-    xdt = (x_c * dt_c[..., None]).to(f32)
+    L = torch.exp(_segsum(dA_hbt.to(acc)))                   # (B,nc,H,Q,Q)
+    xdt = (x_c * dt_c[..., None]).to(acc)
     scores = torch.einsum("bcqn,bckn->bcqk", C_c, B_c)
     y_diag = torch.einsum("bchqk,bcqk,bckhp->bcqhp", L, scores, xdt)
 
     dA_cum = torch.cumsum(dA_hbt, dim=-1)                    # (B,nc,H,Q)
-    decay_out = torch.exp((dA_cum[..., -1:] - dA_cum).to(f32))
+    decay_out = torch.exp((dA_cum[..., -1:] - dA_cum).to(acc))
     states = torch.einsum("bchq,bcqn,bcqhp->bchpn", decay_out, B_c, xdt)
 
-    chunk_decay = torch.exp(dA_cum[..., -1].to(f32))         # (B,nc,H)
-    carry = (torch.zeros((Bsz, H, P, N), dtype=f32, device=xh.device)
-             if init_state is None else init_state.to(f32))
+    chunk_decay = torch.exp(dA_cum[..., -1].to(acc))         # (B,nc,H)
+    carry = (torch.zeros((Bsz, H, P, N), dtype=acc, device=xh.device)
+             if init_state is None else init_state.to(acc))
     prev = []
     for c in range(nc):          # emit the state entering each chunk
         prev.append(carry)
         carry = carry * chunk_decay[:, c, :, None, None] + states[:, c]
     prev_states = torch.stack(prev, dim=1)                   # (B,nc,H,P,N)
 
-    decay_in = torch.exp(dA_cum.to(f32))                     # (B,nc,H,Q)
+    decay_in = torch.exp(dA_cum.to(acc))                     # (B,nc,H,Q)
     y_off = torch.einsum("bcqn,bchq,bchpn->bcqhp", C_c, decay_in,
                          prev_states)
     y = (y_diag + y_off).reshape(Bsz, S, H, P)[:, :S0].to(xh.dtype)

@@ -31,6 +31,10 @@ Differences from the JAX package, all deliberate:
   without reading zeros.
 * ``decode_step`` is ``decode_step_ragged`` at a uniform position, so the
   two agree exactly by construction.
+* ``cfg.remat`` (the reference's ``jax.checkpoint`` around one attention or
+  Mamba layer) is ``torch.utils.checkpoint`` around the same bodies, and
+  applies only when a gradient is carried: serving runs the layers as
+  they are.
 * Every attention and SSD-scan call goes through ``kernels.ops`` (the JAX
   package's kernel path); sliding-window decode keeps the masked
   ``gqa_attention`` on every device, as in JAX, because a ring cache is not
@@ -50,6 +54,7 @@ Properties of the reference, copied as they are:
 Entry points:
   init_params(cfg, seed, device)                          -> params
   forward(cfg, params, tokens, frontend=None)             -> (logits, aux)
+  lm_loss(cfg, params, tokens, frontend=None)             -> loss
   init_cache(cfg, batch, max_len, device, enc_len=None)   -> cache
   prefill(cfg, params, tokens, cache, frontend=None)      -> (logits, cache)
   decode_step(cfg, params, cache, token, t)               -> (logits, cache)
@@ -61,6 +66,7 @@ import math
 from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
 from ..kernels import ops as kernel_ops
@@ -197,13 +203,30 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 def _layer_params(gp: Params) -> Iterator[Params]:
     """The group's layers in order: slices of the stacked leaves, or the
     group itself when it holds one unstacked layer (keyed on the first
-    norm: ``ln1`` of an attention layer, ``ln`` of a Mamba layer)."""
+    norm: ``ln1`` of an attention layer, ``ln`` of a Mamba layer).  The
+    slices come from one ``unbind`` per leaf, so that training stacks the
+    layers' gradients once instead of scattering each into a zeroed copy
+    of the whole leaf."""
     ln = gp["ln1"] if "ln1" in gp else gp["ln"]
     if ln.dim() == 1:
         yield gp
         return
+    slices = {name: t.unbind(0) for name, t in gp.items()}
     for i in range(ln.shape[0]):
-        yield {name: t[i] for name, t in gp.items()}
+        yield {name: ts[i] for name, ts in slices.items()}
+
+
+def _remat(cfg: ModelConfig, body, h: torch.Tensor, lp: Params, *args):
+    """``body(h, lp, *args)``, under layer-boundary remat when training:
+    the counterpart of the reference's ``jax.checkpoint`` around a layer.
+    With ``cfg.remat``, grad enabled and a gradient to carry, only the
+    layer's inputs are kept and its activations are recomputed in the
+    backward pass (so each kernel of the layer launches twice a training
+    step); otherwise, serving included, ``body`` runs as it is."""
+    if cfg.remat and torch.is_grad_enabled() and (
+            h.requires_grad or any(t.requires_grad for t in lp.values())):
+        return checkpoint(body, h, lp, *args, use_reentrant=False)
+    return body(h, lp, *args)
 
 
 def _ffn(cfg: ModelConfig, g: LayerGroup, p: Params, x: torch.Tensor
@@ -237,10 +260,8 @@ def _attn_group_fwd(cfg: ModelConfig, g: LayerGroup, gp: Params,
     state, the group's summed auxiliary loss and each layer's cache rows:
     {"k", "v"}, and the cross K/V {"xk", "xv"} of a cross-attention
     layer."""
-    kv = []
-    h = x
-    aux = torch.zeros((), dtype=f32, device=x.device)
-    for lp in _layer_params(gp):
+
+    def body(h, lp):
         a, k, v = attention_block(
             rms_norm(h, lp["ln1"], cfg.norm_eps), lp,
             n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, hd=cfg.hd,
@@ -259,7 +280,13 @@ def _attn_group_fwd(cfg: ModelConfig, g: LayerGroup, gp: Params,
                 window=0)
             h = h + xa
         f, a_loss = _ffn(cfg, g, lp, rms_norm(h, lp["ln2"], cfg.norm_eps))
-        h = h + f
+        return h + f, a_loss, rows
+
+    kv = []
+    h = x
+    aux = torch.zeros((), dtype=f32, device=x.device)
+    for lp in _layer_params(gp):
+        h, a_loss, rows = _remat(cfg, body, h, lp)
         aux = aux + a_loss
         kv.append(rows)
     return h, aux, kv
@@ -273,16 +300,20 @@ def _mamba_group_fwd(cfg: ModelConfig, gp: Params, x: torch.Tensor,
     without ``ce``, else from layer i's ``ce["conv"][i]`` and
     ``ce["state"][i]``.  Returns the hidden state and each layer's new
     {'conv', 'state'}."""
-    caches = []
-    h = x
-    for i, lp in enumerate(_layer_params(gp)):
-        lc = None if ce is None else {k: t[i] for k, t in ce.items()}
+
+    def body(h, lp, lc):
         y, nc = mamba2_block(
             rms_norm(h, lp["ln"], cfg.norm_eps), lp,
             n_heads=cfg.n_ssm_heads, head_dim=cfg.ssm_head_dim,
             d_state=cfg.ssm_state, d_conv=cfg.ssm_conv, chunk=cfg.ssm_chunk,
             cache=lc)
-        h = h + y
+        return h + y, nc
+
+    caches = []
+    h = x
+    for i, lp in enumerate(_layer_params(gp)):
+        lc = None if ce is None else {k: t[i] for k, t in ce.items()}
+        h, nc = _remat(cfg, body, h, lp, lc)
         caches.append(nc)
     return h, caches
 
@@ -383,6 +414,30 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                                       h, positions, enc_out)
             aux = aux + a
     return _unembed(cfg, params, h), aux
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+
+def lm_loss(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+            frontend: Optional[torch.Tensor] = None,
+            aux_weight: float = 0.01) -> torch.Tensor:
+    """Next-token cross-entropy (+ MoE load-balance aux), the reference's
+    ``lm_loss``: float32 logits of the text positions only, ``logsumexp``
+    minus the picked logit, the mean, plus ``aux_weight * aux``.  The
+    picked logit is a ``gather`` where the reference contracts a one-hot
+    (the same number; the one-hot is B·S·V float32, about 1 GB for
+    minicpm-2b at 4 × 512 tokens)."""
+    logits, aux = forward(cfg, params, tokens, frontend)
+    # predictions for text positions only (frontend tokens are prompts)
+    n_text = tokens.shape[1]
+    pred = logits[:, -n_text:, :].to(f32)[:, :-1]       # (B, S-1, V)
+    tgt = tokens[:, 1:].long()                          # (B, S-1)
+    lse = torch.logsumexp(pred, dim=-1)                 # (B, S-1)
+    picked = pred.gather(-1, tgt[..., None])[..., 0]
+    return (lse - picked).mean() + aux_weight * aux
 
 
 # ---------------------------------------------------------------------------

@@ -5,6 +5,9 @@ a machine with an NVIDIA H100 with::
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import importlib.util
+from pathlib import Path
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -20,9 +23,25 @@ from repro_torch.models import (decode_step_ragged, init_cache,  # noqa: E402
                                 init_params, prefill)
 
 pytestmark = pytest.mark.cuda
-TOL = {torch.bfloat16: 2e-2, torch.float32: 3e-5}   # as chip_smoke.py
-# ssd_scan, as tests/test_kernels.py: (y, state) per dtype
-SSD_TOL = {torch.bfloat16: (6e-2, 1e-2), torch.float32: (1e-4, 1e-4)}
+
+
+def _smoke_tolerances():
+    """chip_smoke.py's tolerances, keyed by torch dtype: kernel vs plain
+    (``TOL``; ``SSD_TOL``, (y, state)) and Function gradients vs plain
+    (``GRAD_TOL``)."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+
+    def by_dtype(table):
+        return {getattr(torch, name): tol for name, tol in table.items()}
+    return (by_dtype(smoke.TOL), by_dtype(smoke.SSD_TOL),
+            {kind: by_dtype(smoke.GRAD_TOL[name]) for kind, name in
+             (("flash", "flash_attention"), ("ssd", "ssd_scan"))})
+
+
+TOL, SSD_TOL, GRAD_TOL = _smoke_tolerances()
 
 
 @pytest.fixture
@@ -423,3 +442,133 @@ def test_whisper_step_on_the_card_matches_the_cpu(cuda):
     n_enc, n_dec = cfg.n_enc_layers, cfg.n_layers
     assert after["attention"] - before["attention"] == n_enc + 3 * n_dec
     assert after["decode_attention"] - before["decode_attention"] == n_dec
+
+
+# ---------------------------------------------------------------------------
+# training: the kernels' autograd Functions and a train step on the card
+# ---------------------------------------------------------------------------
+
+def _grads_against_plain(kind, fn, plain, inputs, dtype):
+    """The Function (kernel forward, backward through kernels/ref.py)
+    against autograd through the plain version: the forward output within
+    TOL (SSD_TOL for y and the state), the gradients within GRAD_TOL of max
+    |g| per input (chip_smoke.py says why each bound holds)."""
+    w = torch.randn(fn(*inputs).shape if kind == "flash"
+                    else fn(*inputs)[0].shape, device="cuda")
+    got, outs = {}, {}
+    for name, f in (("fn", fn), ("plain", plain)):
+        xs = [t.detach().requires_grad_(True) for t in inputs]
+        out = f(*xs)
+        outs[name] = (out,) if kind == "flash" else out
+        got[name] = torch.autograd.grad((outs[name][0].float() * w).sum(),
+                                        xs)
+    tols = (TOL[dtype],) if kind == "flash" else SSD_TOL[dtype]
+    for a, b, tol in zip(outs["fn"], outs["plain"], tols):
+        torch.testing.assert_close(a.detach().float(), b.detach().float(),
+                                   rtol=tol, atol=tol)
+    for i, (a, b) in enumerate(zip(got["fn"], got["plain"])):
+        assert a.dtype == b.dtype == inputs[i].dtype
+        err = ((a.float() - b.float()).abs().max()
+               / b.float().abs().max()).item()
+        assert err <= GRAD_TOL[kind][dtype], f"input {i}: {err:.3g}"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", [(2, 128, 128, 4, 4, 64, True, 0),
+                                  (2, 160, 160, 4, 4, 128, True, 48),
+                                  (2, 40, 200, 4, 4, 256, False, 0),
+                                  (2, 130, 130, 8, 2, 64, True, 0)],
+                         ids=["causal", "window", "cross", "gqa"])
+def test_flash_attention_gradients_match_the_plain_version(cuda, case,
+                                                           dtype):
+    B, Sq, Sk, Hq, Hkv, hd, causal, w = case
+    q = torch.randn(B, Sq, Hq, hd, generator=cuda, device="cuda").to(dtype)
+    k = torch.randn(B, Sk, Hkv, hd, generator=cuda, device="cuda").to(dtype)
+    v = torch.randn(B, Sk, Hkv, hd, generator=cuda, device="cuda").to(dtype)
+    before = flash_attention.launches
+    _grads_against_plain(
+        "flash", lambda *a: flash_attention(*a, causal=causal, window=w),
+        lambda *a: flash_attention_plain(*a, causal=causal, window=w),
+        [q, k, v], dtype)
+    # the w draw and the graded call: the kernel ran under autograd
+    assert flash_attention.launches - before == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S", [128, 100])
+def test_ssd_scan_gradients_match_the_plain_version(cuda, S, dtype):
+    F = torch.nn.functional
+    B, H, P, N = 2, 4, 64, 128
+    x = torch.randn(B, S, H, P, generator=cuda, device="cuda").to(dtype)
+    dt = F.softplus(torch.randn(B, S, H, generator=cuda,
+                                device="cuda")).to(dtype)
+    A = -torch.exp(0.5 * torch.randn(H, generator=cuda, device="cuda"))
+    Bm = torch.randn(B, S, N, generator=cuda, device="cuda").to(dtype)
+    Cm = torch.randn(B, S, N, generator=cuda, device="cuda").to(dtype)
+    before = ssd_scan.launches
+    _grads_against_plain(
+        "ssd", lambda *a: ssd_scan(*a, chunk=64),
+        lambda *a: ssd_scan_plain(*a, chunk=64), [x, dt, A, Bm, Cm], dtype)
+    assert ssd_scan.launches - before == 2
+
+
+def test_serving_on_the_card_takes_no_function(cuda, monkeypatch):
+    """With no input requiring a gradient the wrappers launch directly: no
+    autograd.Function and no checkpoint on the serving path."""
+    import importlib
+    from repro_torch.models import transformer
+
+    def refuse(*a, **k):
+        raise AssertionError("autograd machinery on the serving path")
+
+    for mod, cls in (("flash_attention", "FlashAttentionFn"),
+                     ("ssd_scan", "SSDScanFn")):
+        m = importlib.import_module(f"repro_torch.kernels.{mod}")
+        monkeypatch.setattr(getattr(m, cls), "apply", refuse)
+    monkeypatch.setattr(transformer, "checkpoint", refuse)
+    cfg = get_config("zamba2-1.2b", reduced=True)
+    p = init_params(cfg, seed=0, device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (2, 20), device="cuda")
+    before = ops.launch_counts()
+    lg, _ = prefill(cfg, p, toks, init_cache(cfg, 2, 24, "cuda"))
+    assert torch.isfinite(lg.float()).all() and lg.grad_fn is None
+    after = ops.launch_counts()
+    assert after["ssd"] > before["ssd"]
+    assert after["attention"] > before["attention"]
+
+
+@pytest.mark.parametrize("arch", ["minicpm-2b", "mamba2-370m"])
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """Two AdamW steps of the reduced model in float32 from the same
+    weights: both losses and the first step's gradients (its first moment
+    is a tenth of the clipped gradient) on the card hold to the CPU's, and
+    each kernel launched twice a layer a step (forward, remat).  The
+    parameters themselves are not compared: where a gradient is near 0 its
+    sign may differ between the devices, and Adam's first step then moves
+    the parameter by 2 lr."""
+    from repro_torch.train import adamw_init, make_train_step
+    from repro_torch.train.tree import leaves
+    cfg = get_config(arch, reduced=True).with_(
+        compute_dtype="float32", param_dtype="float32")
+    toks = torch.randint(0, cfg.vocab_size, (2, 40),
+                         generator=torch.Generator().manual_seed(0))
+
+    def run(cfg, p, dev):
+        step = make_train_step(cfg, total_steps=2, peak_lr=1e-3)
+        opt, losses = adamw_init(p), []
+        for i in range(2):
+            p, opt, loss = step(p, opt, toks.to(dev))
+            losses.append(loss)
+            if i == 0:
+                mu = [m.clone() for m in leaves(opt.mu)]
+        return [torch.stack(losses)] + mu
+
+    before = ops.launch_counts()
+    out = _on_both(cfg, run)
+    after = ops.launch_counts()
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=2e-4,
+                               atol=0)
+    for a, b in zip(out["cuda"][1:], out["cpu"][1:]):
+        assert ((a - b).abs().max() / b.abs().max()).item() <= 1e-3
+    op = "ssd" if arch == "mamba2-370m" else "attention"
+    assert after[op] - before[op] == 2 * 2 * cfg.n_layers

@@ -20,12 +20,13 @@ from repro_torch.serving import (BatchingTorchExecutor,  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "examples" / "train_small_torch.py"]
 
 
 def test_importing_the_port_loads_no_jax_and_no_repro():
     code = ("import sys\n"
             "import repro_torch, repro_torch.launch.serve\n"
+            "import repro_torch.train, repro_torch.launch.train\n"
             "import repro_torch.kernels, repro_torch.models\n"
             "import repro_torch.core, repro_torch.sim, repro_torch.serving\n"
             "from repro_torch.sim import get_workload_factory\n"

@@ -7,8 +7,10 @@ imports ``repro_torch`` from ``ROOT/src`` (building its kernels into
 ``chip_smoke.py`` phase 4 uses: ``flash_attention`` (minicpm-2b's join,
 S 512, 36 heads, hd 64, causal) and ``decode_attention`` (its step, L 544)
 at buckets 8 and 1, ``ssd_scan`` (mamba2-370m's join, S 512, 32 heads,
-P 64, N 128, chunk 64) at buckets 8 and 1, and flash's one-CTA fit (36
-q tiles of 128 rows, not causal, over 64 and 2048 keys: the fixed cost
+P 64, N 128, chunk 64) and its plain version at buckets 8 and 1 (the plain
+one as phase 4 times it, then behind a sleep that outlasts the host's
+enqueue, with the host's time per call beside), and flash's one-CTA fit
+(36 q tiles of 128 rows, not causal, over 64 and 2048 keys: the fixed cost
 of a CTA and the cost of each further 64-key tile).  Each time is the
 median of 25 CUDA-event timings, L2 flushed, a device-side sleep ahead of
 each.  It prints one JSON line.  Run it on several checkouts in turns
@@ -17,25 +19,33 @@ each.  It prints one JSON line.  Run it on several checkouts in turns
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
 
 
-def time_ms(fn, flush, runs=25, warmup=3):
+def time_ms(fn, flush, runs=25, warmup=3, sleep=1_000_000, host=None):
+    """Median CUDA-event time of ``fn``; ``sleep`` cycles of device-side
+    sleep ahead of each run (about 0.5 ms by default, as chip_smoke.py
+    phase 4).  ``host``, a list, gets the median host time of each call."""
     for _ in range(warmup):
         fn()
-    ts = []
+    ts, hs = [], []
     for _ in range(runs):
         flush.zero_()
-        torch.cuda._sleep(1_000_000)
+        torch.cuda._sleep(sleep)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
+        t0 = time.perf_counter()
         fn()
+        hs.append((time.perf_counter() - t0) * 1e3)
         b.record()
         b.synchronize()
         ts.append(a.elapsed_time(b))
+    if host is not None:
+        host.append(sorted(hs)[len(hs) // 2])
     return sorted(ts)[len(ts) // 2]
 
 
@@ -46,7 +56,7 @@ def main(root: Path, tag: str) -> int:
     sys.path.insert(0, str(root.resolve() / "src"))
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
@@ -73,6 +83,16 @@ def main(root: Path, tag: str) -> int:
         Bm, Cm = rnd(B, 512, 128).bfloat16(), rnd(B, 512, 128).bfloat16()
         out[f"ssd_ms_bucket{B}"] = time_ms(
             lambda: ssd_scan(x, dt, A, Bm, Cm, chunk=64), flush)
+        # the plain scan as phase 4 times it, then behind a sleep of about
+        # 25 ms, which outlasts the host's enqueue of its launches, so that
+        # the events hold the device's time alone
+        host = []
+        out[f"ssd_plain_ms_bucket{B}"] = time_ms(
+            lambda: ssd_scan_plain(x, dt, A, Bm, Cm, chunk=64), flush)
+        out[f"ssd_plain_device_ms_bucket{B}"] = time_ms(
+            lambda: ssd_scan_plain(x, dt, A, Bm, Cm, chunk=64), flush,
+            sleep=50_000_000, host=host)
+        out[f"ssd_plain_host_ms_bucket{B}"] = host[0]
     fit = {}
     for Sk in (64, 2048):
         q1 = rnd(1, 128, 36, 64).bfloat16()
