@@ -43,6 +43,13 @@ depth through ``launch.train``'s ``Trainer`` (B 4 x S 512 of
 ``SyntheticLM``), asserting finite, falling losses, a finite non-zero
 gradient on every leaf, every leaf changed, each kernel launched twice a
 layer a step (forward and remat recompute), and profiling one more step.
+Phase 12 runs the multi-device dry-run (``repro_torch.launch.dryrun``) of
+three combinations at published width and depth on a fake 256-rank mesh,
+in three processes on the host, then prices phase 7's joins and steps and
+phase 11's training steps with the dry-run's cost model and asserts that
+no bound exceeds the busy time the card measured.  Phase 4 times each
+plain version behind a 25 ms device-side sleep, which outlasts the host's
+enqueue of its launches.
 Any failed phase raises and the script
 exits non-zero.  The second-to-last line of output is a JSON object
 ``{"kernels": [...]}`` (times, bounds, launches); the last line is
@@ -213,6 +220,20 @@ MODEL_GRAD_TOL = 1e-3
 # 12.3439 at 5e-5, and mamba2-370m's from 11.0341 to 10.1755 at 1e-3.
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 4, 512
 TRAIN_LR = {"minicpm-2b": 3e-4, "mamba2-370m": 1e-3}
+
+# Phase 4: a device-side sleep of about 25 ms (the card's clock cycles)
+# ahead of each timing of a plain version, which outlasts the host's enqueue
+# of its launches (the plain SSD scan's ~100 take 2.2-3.5 ms), so that the
+# events hold the card's time; the kernels keep phase 4's 0.5 ms
+PLAIN_SLEEP = 50_000_000
+
+# Phase 12 (a): the dry-run (repro_torch.launch.dryrun) at full width and
+# depth on the 256-rank production mesh, one process per combination: the
+# dense decoder's decode, the expert-parallel MoE with backward and AdamW,
+# and the context-parallel KV cache of batch-1 long decode
+DRYRUN_COMBOS = (("minicpm-2b", "decode_32k"), ("mixtral-8x22b", "train_4k"),
+                 ("gemma3-1b", "long_500k"))
+DRYRUN_TIMEOUT = 240
 
 
 def log(*a) -> None:
@@ -955,6 +976,131 @@ def train_run(cfg, dev, smi: str, *, steps: int, batch: int, seq: int,
     return out
 
 
+def dryrun_phase(smi: str) -> Dict[str, Any]:
+    """Phase 12 (a): ``python -m repro_torch.launch.dryrun`` for each of
+    ``DRYRUN_COMBOS`` at full width and depth on the (data 32, model 8)
+    mesh of 256 fake ranks, one process each, all at once (host work on
+    meta tensors: nothing runs on the card).  Asserts non-zero FLOPs and
+    bytes and collectives over some axis; prints the three roofline terms
+    and the arguments' bytes a device against the card's 80 GB."""
+    import os
+    from repro_torch.launch.dryrun import RESULTS_DIR
+    from repro_torch.launch.mesh import HBM_BYTES
+    from repro_torch.launch.roofline import terms
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    procs = {c: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", c[0],
+         "--shape", c[1], "--mesh", "single", "--force"], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c in DRYRUN_COMBOS}
+    out = {}
+    try:
+        for (arch, shape), p in procs.items():
+            text = p.communicate(timeout=DRYRUN_TIMEOUT)[0]
+            if p.returncode:
+                raise AssertionError(f"phase 12: the dry-run of {arch} x "
+                                     f"{shape} failed:\n{text[-3000:]}")
+            rec = json.loads((RESULTS_DIR / f"{arch}__{shape}__single.json"
+                              ).read_text())
+            if not (rec["flops"] > 0 and rec["bytes_accessed"] > 0
+                    and rec["coll_by_axis"]):
+                raise AssertionError(f"phase 12: {arch} x {shape} counted "
+                                     f"nothing: {rec}")
+            t = terms(rec)
+            arg = rec["argument_size_in_bytes"]
+            log(f"[dryrun] {arch} x {shape} on {rec['mesh']} "
+                f"({rec['n_devices']} fake ranks, fsdp {rec['fsdp']}; "
+                f"trace {rec['trace_s']} s): per device {rec['flops']:.4g} "
+                f"flop, {rec['bytes_accessed']:.4g} bytes, collectives "
+                + ", ".join(f"{a} {b:.4g}" for a, b in
+                            rec["coll_by_axis"].items())
+                + f" bytes; compute {t['compute_s'] * 1e3:.3f} ms, memory "
+                f"{t['memory_s'] * 1e3:.3f} ms, collective "
+                f"{t['collective_s'] * 1e3:.3f} ms (H100 data sheet, not "
+                f"measured); arguments {arg / 1e9:.2f} GB a device of the "
+                f"card's {HBM_BYTES / 1e9:.0f} GB")
+            out[f"{arch}:{shape}"] = {**rec, **t}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def anchor_work(cfg, *, batch: int = 8, prompt: int = 512,
+                cache_len: int = 544, train_batch: int = TRAIN_BATCH,
+                train_seq: int = TRAIN_SEQ) -> Dict[str, Dict[str, float]]:
+    """Phase 12 (b): ``DeviceCostMode``'s count, on meta tensors, of the
+    work phase 7 timed (a bucket-``batch`` join of ``prompt`` tokens into a
+    cache of ``cache_len``, and a decode step over it) and phase 11 timed
+    (a training step at ``train_batch`` x ``train_seq``), the three hot
+    spots priced as their kernels (``kernels_priced``); with the bound on
+    one H100: the larger of flop / 989e12 and bytes / 3.35e12.  Runs on any
+    host: nothing is allocated."""
+    import torch
+    from repro_torch.launch.cost import DeviceCostMode, kernels_priced
+    from repro_torch.models import (decode_step_ragged, init_cache,
+                                    init_params, prefill)
+    from repro_torch.train import adamw_init, make_train_step
+
+    def price(call) -> Dict[str, float]:
+        with DeviceCostMode() as mode, kernels_priced(mode):
+            call()
+        f_ms = mode.flops / BF16_FLOPS * 1e3
+        b_ms = mode.bytes / HBM_BYTES_PER_S * 1e3
+        return {"flops": mode.flops, "bytes": mode.bytes,
+                "bound_ms": max(f_ms, b_ms),
+                "bound_by": "operations" if f_ms > b_ms else "bytes"}
+
+    def meta(*shape, dtype=torch.long):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    params = init_params(cfg, device="meta")
+    cache = init_cache(cfg, batch, cache_len, device="meta")
+    with torch.no_grad():
+        join = price(lambda: prefill(cfg, params, meta(batch, prompt),
+                                     cache))
+        step = price(lambda: decode_step_ragged(
+            cfg, params, cache, meta(batch, 1),
+            torch.full((batch,), prompt, dtype=torch.int32, device="meta")))
+    opt = adamw_init(params)
+    train = price(lambda: make_train_step(cfg)(
+        params, opt, meta(train_batch, train_seq)))
+    return {"join": join, "step": step, "train": train}
+
+
+def anchor_phase(report: Dict[str, Any], get_config,
+                 smi: str) -> Dict[str, Any]:
+    """Phase 12 (b): each main path's bucket-8 join and decode step
+    (phase 7) and training step (phase 11), priced by ``anchor_work``,
+    against the device-busy ms the card measured in this run.  A bound
+    above the card's own time means the count is wrong: it raises."""
+    out = {}
+    for model in ("minicpm-2b", "mamba2-370m"):
+        work = anchor_work(get_config(model))
+        busy = {"join": report["profile"][model]["join"]["device_busy_ms"],
+                "step": report["profile"][model]["step"]["device_busy_ms"],
+                "train": report["train"][model]["profile"]["device_busy_ms"]}
+        for what, w in work.items():
+            w.update(busy_ms=busy[what], busy_over_bound=(
+                busy[what] / w["bound_ms"]))
+            log(f"[anchor] {model} {what}: {w['flops']:.4g} flop, "
+                f"{w['bytes']:.4g} bytes (DeviceCostMode, kernels as "
+                f"kernels): bound {w['bound_ms']:.3f} ms ({w['bound_by']}); "
+                f"device busy {busy[what]:.3f} ms; busy / bound "
+                f"{w['busy_over_bound']:.2f}; {smi}")
+            if w["bound_ms"] > busy[what]:
+                raise AssertionError(
+                    f"phase 12: {model} {what}: the cost model's bound "
+                    f"{w['bound_ms']:.3f} ms exceeds the card's "
+                    f"{busy[what]:.3f} ms busy")
+        out[model] = work
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1110,19 +1256,20 @@ def main() -> int:
     # -- 4. kernel timing at the main path's shapes (bf16) ---------------------
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
 
-    def time_ms(fn, runs=25, warmup=3):
+    def time_ms(fn, runs=25, warmup=3, sleep=1_000_000):
         """Median of ``runs`` CUDA-event timings, L2 flushed before each
         (the serving path meets every layer's tensors cold).  A device-side
-        sleep of about half a millisecond after the flush keeps the card busy
-        while the host enqueues ``fn``, so the interval between the events
-        holds the device's time for ``fn`` and not the host's time to reach
-        its launch."""
+        sleep of ``sleep`` cycles after the flush (about half a millisecond
+        by default; ``PLAIN_SLEEP`` for a plain version's many launches)
+        keeps the card busy while the host enqueues ``fn``, so the interval
+        between the events holds the device's time for ``fn`` and not the
+        host's time to reach its launch."""
         for _ in range(warmup):
             fn()
         ts = []
         for _ in range(runs):
             flush.zero_()
-            torch.cuda._sleep(1_000_000)
+            torch.cuda._sleep(sleep)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -1151,7 +1298,7 @@ def main() -> int:
                  is_causal=True, enable_gqa=Hkv != H))}
         if plain:
             t["plain_ms"] = time_ms(lambda: flash_attention_plain(
-                q, k, v, causal=True))
+                q, k, v, causal=True), sleep=PLAIN_SLEEP)
         # q, k, v read once and o (q's shape) written once; causal pairs
         t.update(bound((2 * q.numel() + k.numel() + v.numel())
                        * q.element_size(),
@@ -1171,7 +1318,7 @@ def main() -> int:
                  enable_gqa=Hkv != H))}
         if plain:
             t["plain_ms"] = time_ms(lambda: decode_attention_plain(
-                qd, kd, vd, vlen))
+                qd, kd, vd, vlen), sleep=PLAIN_SLEEP)
         live = int(vlen.sum().item())
         t.update(bound(2 * qd.numel() * qd.element_size()
                        + 2 * live * Hkv * hd * kd.element_size()
@@ -1245,7 +1392,8 @@ def main() -> int:
                                           0).multi_processor_count)}
         if plain:
             t["plain_ms"] = time_ms(lambda: ssd_scan_plain(x, dt, A, Bm, Cm,
-                                                           chunk=Q))
+                                                           chunk=Q),
+                                    sleep=PLAIN_SLEEP)
         planner, n_chunks = ssd_mod.ssd_plan, S // ssd_mod.KERNEL_CHUNK
         t["splits_ms"] = {}
         try:
@@ -1448,6 +1596,10 @@ def main() -> int:
                         batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                         lr=TRAIN_LR[model])
         report["train"][model] = {"grad_parity": par, **run}
+
+    # -- 12. the dry-run, and its cost model against the card -----------------
+    report["dryrun"] = dryrun_phase(smi)
+    report["anchor"] = anchor_phase(report, get_config, smi)
 
     # -- result -------------------------------------------------------------------
     # each kernel: its launches over all of serve() on its own path, and the

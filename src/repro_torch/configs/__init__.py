@@ -47,3 +47,15 @@ INPUT_SHAPES: Dict[str, Tuple[int, int, str]] = {
     "decode_32k": (32768, 128, "decode"),
     "long_500k": (524288, 1, "decode"),
 }
+
+# long_500k needs sub-quadratic attention state: run only where the cache is
+# bounded (SWA / SSM / hybrid); skip for pure full-attention archs (the JAX
+# package's rule, src/repro/configs/__init__.py)
+LONG_CONTEXT_ARCHS = ("gemma3-1b", "zamba2-1.2b", "mamba2-370m",
+                      "mixtral-8x22b")
+
+
+def shape_applicable(arch: str, shape: str) -> bool:
+    if shape == "long_500k":
+        return arch in LONG_CONTEXT_ARCHS
+    return True

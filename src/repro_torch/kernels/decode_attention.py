@@ -3,8 +3,9 @@ and its plain PyTorch version.
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/decode_attention.py``
 (``decode_attention``, body ``_dec_kernel``).  :func:`decode_attention`
-picks the implementation from the device of its inputs: CPU tensors go to
-:func:`decode_attention_plain`, CUDA tensors launch the kernel or raise.
+picks the implementation from the device of its inputs: CPU and meta
+tensors go to :func:`decode_attention_plain`, CUDA tensors launch the
+kernel or raise.
 ``decode_attention.launches`` counts kernel launches.
 
 A row with ``valid_len = 0`` attends to nothing and comes out as zeros, as
@@ -21,7 +22,7 @@ import torch
 
 from . import _build
 from ..device import sm_count
-from .ref import decode_attention_ref
+from .ref import PLAIN_DEVICES, decode_attention_ref
 
 HEAD_DIMS = (32, 64, 72, 96, 128, 256)
 DTYPES = (torch.bfloat16, torch.float32)
@@ -93,12 +94,12 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      valid_len: torch.Tensor) -> torch.Tensor:
     """q (B,Hq,hd), k/v (B,L,Hkv,hd), valid_len (B,) -> (B,Hq,hd).  CPU
-    tensors: the plain version; CUDA tensors: the kernel."""
-    if q.device.type == "cpu":
+    and meta tensors: the plain version; CUDA tensors: the kernel."""
+    if q.device.type in PLAIN_DEVICES:
         return decode_attention_plain(q, k, v, valid_len)
     if q.device.type != "cuda":
-        raise ValueError(f"decode_attention runs on cpu or cuda tensors, "
-                         f"got {q.device}")
+        raise ValueError(f"decode_attention runs on cpu, meta or cuda "
+                         f"tensors, got {q.device}")
     _check(q, k, v, valid_len)
     B, Hq, hd = q.shape
     L, Hkv = k.shape[1], k.shape[2]

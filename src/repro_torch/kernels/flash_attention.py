@@ -3,7 +3,7 @@
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/flash_attention.py``
 (``flash_attention``, body ``_fa_kernel``).  :func:`flash_attention` picks
-the implementation from the device of its inputs: CPU tensors go to
+the implementation from the device of its inputs: CPU and meta tensors go to
 :func:`flash_attention_plain`, CUDA tensors launch the kernel or raise.
 ``flash_attention.launches`` counts kernel launches.
 
@@ -22,7 +22,7 @@ import ctypes
 import torch
 
 from . import _build
-from .ref import flash_attention_ref
+from .ref import PLAIN_DEVICES, flash_attention_ref
 
 HEAD_DIMS = (32, 64, 72, 96, 128, 256)
 DTYPES = (torch.bfloat16, torch.float32)
@@ -91,10 +91,10 @@ class FlashAttentionFn(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q (B,Sq,Hq,hd), k/v (B,Sk,Hkv,hd) -> (B,Sq,Hq,hd), queries aligned
-    to the end of K.  CPU tensors: the plain version; CUDA tensors: the
-    kernel, inside :class:`FlashAttentionFn` when a gradient is to be
-    carried."""
-    if q.device.type == "cpu":
+    to the end of K.  CPU and meta tensors: the plain version; CUDA
+    tensors: the kernel, inside :class:`FlashAttentionFn` when a gradient
+    is to be carried."""
+    if q.device.type in PLAIN_DEVICES:
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
@@ -106,7 +106,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             causal: bool, window: int) -> torch.Tensor:
     """The kernel on CUDA tensors; counts the launch."""
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda tensors, "
+        raise ValueError(f"flash_attention runs on cpu, meta or cuda tensors, "
                          f"got {q.device}")
     _check(q, k, v)
     B, Sq, Hq, hd = q.shape

@@ -17,6 +17,11 @@ import torch
 
 f32 = torch.float32
 NEG_INF = -1e30
+# devices whose tensors every kernel wrapper sends to its plain version: the
+# CPU (tests) and the meta device (the dry-run's shapes, ``launch/dryrun.py``,
+# as the reference's dry-run lowers its XLA ops); a CUDA tensor launches the
+# kernel or raises
+PLAIN_DEVICES = ("cpu", "meta")
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

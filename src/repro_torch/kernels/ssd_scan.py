@@ -3,7 +3,7 @@
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/ssd_scan.py``
 (``ssd_scan``, body ``_ssd_kernel``).  :func:`ssd_scan` picks the
-implementation from the device of its inputs: CPU tensors go to
+implementation from the device of its inputs: CPU and meta tensors go to
 :func:`ssd_scan_plain`, CUDA tensors launch the kernel or raise.
 ``ssd_scan.launches`` counts kernel launches.  For bf16 inputs the kernel
 splits the chunks of each (b, h) across a thread-block cluster:
@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .ref import ssd_scan_ref
+from .ref import PLAIN_DEVICES, ssd_scan_ref
 from ..device import sm_count
 
 f32 = torch.float32
@@ -200,10 +200,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              init_state: Optional[torch.Tensor] = None,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B,S,H,P), dt (B,S,H), A (H,), Bm/Cm (B,S,N) -> (y (B,S,H,P),
-    final state (B,H,P,N) float32).  CPU tensors: the plain version; CUDA
-    tensors: the kernel, inside :class:`SSDScanFn` when a gradient is to
-    be carried."""
-    if x.device.type == "cpu":
+    final state (B,H,P,N) float32).  CPU and meta tensors: the plain
+    version; CUDA tensors: the kernel, inside :class:`SSDScanFn` when a
+    gradient is to be carried."""
+    if x.device.type in PLAIN_DEVICES:
         return ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk,
                               init_state=init_state)
     if torch.is_grad_enabled() and any(
@@ -219,7 +219,7 @@ def _launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel on CUDA tensors; counts the launch."""
     if x.device.type != "cuda":
-        raise ValueError(f"ssd_scan runs on cpu or cuda tensors, got "
+        raise ValueError(f"ssd_scan runs on cpu, meta or cuda tensors, got "
                          f"{x.device}")
     _check(x, dt, A, Bm, Cm, chunk, init_state)
     B, S, H, P = x.shape

@@ -154,6 +154,23 @@ class ModelConfig:
     def with_(self, **kw) -> "ModelConfig":
         return replace(self, **kw)
 
+    def pad_heads(self, multiple: int = 16) -> "ModelConfig":
+        """Round head counts up to a multiple so they shard evenly on the
+        ``model`` mesh axis (beyond-paper perf variant).
+
+        Padding is *exact*: padded heads have zero wk/wv/wo weights, so their
+        keys/values/outputs are identically zero and contribute nothing —
+        semantics are preserved while the KV cache becomes head-shardable
+        (avoiding GSPMD's head-dim sharding + RoPE-split full
+        rematerialization).  Costs (multiple/heads)x extra attention FLOPs.
+        """
+        if not self.n_heads:
+            return self
+        def up(x: int) -> int:
+            return -(-x // multiple) * multiple
+        return self.with_(n_heads=up(self.n_heads),
+                          n_kv_heads=up(self.n_kv_heads))
+
     # -- sizes ------------------------------------------------------------------
     def param_count(self) -> int:
         """Analytic parameter count."""

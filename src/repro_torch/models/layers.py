@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops as kernel_ops
+from .spmd import (evenly, per_head, per_row, replicated, rows_and_heads,
+                   settled, shard_as, whole)
 
 Params = Dict[str, torch.Tensor]
 f32 = torch.float32
@@ -39,13 +41,13 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     g = F.silu(x @ w_gate)
-    return (g * (x @ w_up)) @ w_down
+    return settled((g * (x @ w_up)) @ w_down)
 
 
 def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor,
              w_down: torch.Tensor) -> torch.Tensor:
     # tanh approximation: jax.nn.gelu's default
-    return F.gelu(x @ w_up, approximate="tanh") @ w_down
+    return settled(F.gelu(x @ w_up, approximate="tanh") @ w_down)
 
 
 # ---------------------------------------------------------------------------
@@ -108,17 +110,19 @@ def attention_block(x: torch.Tensor, p: Params, *, n_heads: int,
     ``kernels.ops.attention`` with the structural causal/window
     description, as the JAX package's kernel path passes it."""
     B, S, _ = x.shape
-    q = (x @ p["wq"]).reshape(B, S, n_heads, hd)
+    q = evenly(x @ p["wq"], n_heads).reshape(B, S, n_heads, hd)
     if kv_override is None:
-        k = (x @ p["wk"]).reshape(B, S, n_kv_heads, hd)
-        v = (x @ p["wv"]).reshape(B, S, n_kv_heads, hd)
+        k = evenly(x @ p["wk"], n_kv_heads).reshape(B, S, n_kv_heads, hd)
+        v = evenly(x @ p["wv"], n_kv_heads).reshape(B, S, n_kv_heads, hd)
         k = apply_rope(k, positions, rope_theta)
     else:
         k, v = kv_override
     q = apply_rope(q, positions, rope_theta)
-    out = kernel_ops.attention(q, k, v, causal=causal, window=window)
-    out = out.reshape(B, S, n_heads * hd) @ p["wo"]
-    return out, k, v
+    out = rows_and_heads(kernel_ops.attention, (q, k, v), ((0, 2),) * 3,
+                         ((0, 2),), (q.shape,), (k.shape[2],),
+                         causal=causal, window=window)
+    out = evenly(out, n_heads, dim=2).reshape(B, S, n_heads * hd) @ p["wo"]
+    return settled(out), k, v
 
 
 # ---------------------------------------------------------------------------
@@ -132,6 +136,28 @@ def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     (``torch.topk`` promises no order for ties)."""
     idx = torch.argsort(-probs, dim=-1, stable=True)[..., :k]
     return probs.gather(-1, idx), idx
+
+
+def _route(eidx: torch.Tensor, T: int, E: int, C: int
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The dispatch plan of (T, k) expert ids: each (token, choice)'s slot
+    in the (E*C,) buffer (``E*C``, the drop bucket, past an expert's
+    capacity), each slot's source token (``T``, the zero row, when empty)
+    and the permutation that undoes the stable sort by expert."""
+    dev = eidx.device
+    k = eidx.shape[-1]
+    flat_e = eidx.reshape(-1)                                  # (T*k,)
+    sort_idx = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[sort_idx]
+    seg_start = torch.searchsorted(sorted_e,
+                                   torch.arange(E, device=dev))  # (E,)
+    pos_in_e = torch.arange(T * k, device=dev) - seg_start[sorted_e]
+    dest = torch.where(pos_in_e < C, sorted_e * C + pos_in_e,
+                       torch.full_like(pos_in_e, E * C))       # drop bucket
+    # scatter 8-byte source indices
+    slot_src = torch.full((E * C + 1,), T, dtype=torch.long, device=dev)
+    slot_src[dest] = sort_idx // k
+    return dest, slot_src, torch.argsort(sort_idx)
 
 
 def moe_block(x: torch.Tensor, p: Params, *, n_experts: int, k: int,
@@ -150,7 +176,6 @@ def moe_block(x: torch.Tensor, p: Params, *, n_experts: int, k: int,
     auxiliary loss is the Switch load-balance term ``E * sum(me * ce)``."""
     B, S, d = x.shape
     T = B * S
-    dev = x.device
     xt = x.reshape(T, d)
     logits = (xt @ p["router"]).to(f32)                        # (T,E)
     probs = torch.softmax(logits, dim=-1)
@@ -159,21 +184,15 @@ def moe_block(x: torch.Tensor, p: Params, *, n_experts: int, k: int,
 
     E = n_experts
     C = max(1, int(math.ceil(k * T / E * capacity_factor)))
-    flat_e = eidx.reshape(-1)                                  # (T*k,)
-    sort_idx = torch.argsort(flat_e, stable=True)
-    sorted_e = flat_e[sort_idx]
-    seg_start = torch.searchsorted(sorted_e,
-                                   torch.arange(E, device=dev))  # (E,)
-    pos_in_e = torch.arange(T * k, device=dev) - seg_start[sorted_e]
-    dest = torch.where(pos_in_e < C, sorted_e * C + pos_in_e,
-                       torch.full_like(pos_in_e, E * C))       # drop bucket
-    token_idx = sort_idx // k
+    # the routing's index bookkeeping runs on whole (T*k,) id vectors on
+    # every rank of a mesh (searchsorted has no sharding strategy)
+    dest, slot_src, inv = replicated(
+        lambda e: _route(e, T, E, C), eidx)
 
-    # dispatch: scatter 8-byte source indices, then one row gather
-    slot_src = torch.full((E * C + 1,), T, dtype=torch.long, device=dev)
-    slot_src[dest] = token_idx
+    # dispatch: one row gather through the slot -> source-token index; on a
+    # mesh each rank then runs its share of the capacity slots
     xt_pad = torch.cat([xt, xt.new_zeros((1, d))])
-    h = xt_pad[slot_src[:E * C]].reshape(E, C, d)
+    h = shard_as(xt_pad[slot_src[:E * C]].reshape(E, C, d), 1, x, 0)
     if mlp == "swiglu":
         g = F.silu(torch.einsum("ecd,edf->ecf", h, p["w_gate"]))
         u = torch.einsum("ecd,edf->ecf", h, p["w_up"])
@@ -184,9 +203,9 @@ def moe_block(x: torch.Tensor, p: Params, *, n_experts: int, k: int,
         out_e = torch.einsum("ecf,efd->ecd", hmid, p["w_down"])
 
     # combine: the two permutations (sorted -> slot, unsort) composed into
-    # one row gather
+    # one row gather, which on a mesh reads every rank's slots
+    out_e = whole(whole(out_e, 1), 0)
     out_flat = torch.cat([out_e.reshape(E * C, d), out_e.new_zeros((1, d))])
-    inv = torch.argsort(sort_idx)
     out_tk = out_flat[dest[inv]].reshape(T, k, d)
     y = (out_tk * gates.to(x.dtype)[..., None]).sum(dim=1)
 
@@ -301,13 +320,15 @@ def mamba2_block(x: torch.Tensor, p: Params, *, n_heads: int, head_dim: int,
     B, S, _ = x.shape
     H, P, N = n_heads, head_dim, d_state
     di = H * P
-    z, xBC, dt = torch.split(x @ p["in_proj"], [di, di + 2 * N, H], dim=-1)
+    z, xBC, dt = torch.split(whole(x @ p["in_proj"]), [di, di + 2 * N, H],
+                             dim=-1)
     # causal depthwise conv over the sequence, as the JAX package writes
     # it: products and their sum in the compute dtype, then the float32 bias
     if cache is not None:
         conv_in = torch.cat([cache["conv"], xBC], dim=1)
     else:
-        conv_in = F.pad(xBC, (0, 0, d_conv - 1, 0))
+        conv_in = per_row(lambda t: F.pad(t, (0, 0, d_conv - 1, 0)), xBC,
+                          (B, S + d_conv - 1, xBC.shape[-1]))
     new_conv = conv_in[:, -(d_conv - 1):, :]
     w = p["conv_w"]                                          # (d_conv, d_xBC)
     acc = conv_in[:, 0:S] * w[0]
@@ -320,16 +341,20 @@ def mamba2_block(x: torch.Tensor, p: Params, *, n_heads: int, head_dim: int,
     A = -torch.exp(p["A_log"].to(f32))                       # (H,)
 
     if cache is not None and S == 1:
-        y1, new_state = kernel_ops.ssd_step(cache["state"], xh[:, 0],
-                                            dt[:, 0], A, Bm[:, 0], Cm[:, 0])
+        y1, new_state = rows_and_heads(
+            kernel_ops.ssd_step,
+            (cache["state"], xh[:, 0], dt[:, 0], A, Bm[:, 0], Cm[:, 0]),
+            ((0, 1), (0, 1), (0, 1), (None, 0), (0, None), (0, None)),
+            ((0, 1), (0, 1)), (xh[:, 0].shape, cache["state"].shape), (H,))
         y = y1[:, None]
     else:
         init = cache["state"] if cache is not None else None
-        y, new_state = kernel_ops.ssd(
-            xh.contiguous(), dt.to(xh.dtype), A, Bm.contiguous(),
-            Cm.contiguous(), chunk=chunk, init_state=init)
+        y, new_state = per_head(
+            kernel_ops.ssd, xh.contiguous(), dt.to(xh.dtype), A,
+            Bm.contiguous(), Cm.contiguous(), chunk=chunk, init_state=init)
     y = y + xh * p["D"].to(xh.dtype)[None, None, :, None]
     y = y.reshape(B, S, di)
     # gated RMSNorm (mamba2 style), at rms_norm's default eps as in JAX
     y = rms_norm(y * F.silu(z), p["norm_w"])
-    return y @ p["out_proj"], {"conv": new_conv, "state": new_state}
+    return settled(y @ p["out_proj"]), {"conv": new_conv,
+                                        "state": new_state}

@@ -73,6 +73,8 @@ from ..kernels import ops as kernel_ops
 from .config import LayerGroup, ModelConfig
 from .layers import (apply_rope, attention_block, gelu_mlp, gqa_attention,
                      mamba2_block, moe_block, rms_norm, swiglu)
+from .spmd import (embed, evenly, gather_data, pick, put_slots, ring_fill,
+                   rows_and_heads, settled)
 
 Params = Dict[str, Any]
 f32 = torch.float32
@@ -206,14 +208,15 @@ def _layer_params(gp: Params) -> Iterator[Params]:
     norm: ``ln1`` of an attention layer, ``ln`` of a Mamba layer).  The
     slices come from one ``unbind`` per leaf, so that training stacks the
     layers' gradients once instead of scattering each into a zeroed copy
-    of the whole leaf."""
+    of the whole leaf.  On a mesh, a layer's FSDP-sharded weights are
+    gathered as it comes (``spmd.gather_data``)."""
     ln = gp["ln1"] if "ln1" in gp else gp["ln"]
     if ln.dim() == 1:
-        yield gp
+        yield {name: gather_data(t) for name, t in gp.items()}
         return
     slices = {name: t.unbind(0) for name, t in gp.items()}
     for i in range(ln.shape[0]):
-        yield {name: ts[i] for name, ts in slices.items()}
+        yield {name: gather_data(ts[i]) for name, ts in slices.items()}
 
 
 def _remat(cfg: ModelConfig, body, h: torch.Tensor, lp: Params, *args):
@@ -246,8 +249,10 @@ def _enc_kv(cfg: ModelConfig, lp: Params, enc_out: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """A decoder layer's cross-attention K/V over the encoder output."""
     B, Se, _ = enc_out.shape
-    k = (enc_out @ lp["xwk"]).reshape(B, Se, cfg.n_kv_heads, cfg.hd)
-    v = (enc_out @ lp["xwv"]).reshape(B, Se, cfg.n_kv_heads, cfg.hd)
+    k = evenly(enc_out @ lp["xwk"], cfg.n_kv_heads).reshape(
+        B, Se, cfg.n_kv_heads, cfg.hd)
+    v = evenly(enc_out @ lp["xwv"], cfg.n_kv_heads).reshape(
+        B, Se, cfg.n_kv_heads, cfg.hd)
     return k, v
 
 
@@ -337,7 +342,7 @@ def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     """Gather, cast to the compute dtype, then scale by sqrt(d) in that
     dtype: JAX rounds the weakly typed scalar to the array's dtype first.
     A frontend model's (B, F, d) embeddings go ahead of the text."""
-    h = params["embed"][tokens].to(cfg.dtype())
+    h = embed(gather_data(params["embed"]), tokens).to(cfg.dtype())
     scale = torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype,
                          device=h.device)
     h = h * scale
@@ -352,8 +357,8 @@ def _unembed(cfg: ModelConfig, params: Params,
     the padded columns too, as in the JAX package)."""
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
-        return h @ params["embed"].T.to(h.dtype)
-    return h @ params["lm_head"].to(h.dtype)
+        return h @ gather_data(params["embed"]).T.to(h.dtype)
+    return h @ gather_data(params["lm_head"]).to(h.dtype)
 
 
 def _encode(cfg: ModelConfig, params: Params,
@@ -436,7 +441,7 @@ def lm_loss(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     pred = logits[:, -n_text:, :].to(f32)[:, :-1]       # (B, S-1, V)
     tgt = tokens[:, 1:].long()                          # (B, S-1)
     lse = torch.logsumexp(pred, dim=-1)                 # (B, S-1)
-    picked = pred.gather(-1, tgt[..., None])[..., 0]
+    picked = pick(pred, tgt[..., None])[..., 0]
     return (lse - picked).mean() + aux_weight * aux
 
 
@@ -511,23 +516,12 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                 f"init_cache)")
         W = ce["k"].shape[2]
         for i, rows in enumerate(kv):
-            _ring_fill(ce["k"][i], rows["k"], S, W)
-            _ring_fill(ce["v"][i], rows["v"], S, W)
+            ring_fill(ce["k"][i], rows["k"], S, W)
+            ring_fill(ce["v"][i], rows["v"], S, W)
             if g.cross_attn:
                 ce["xk"][i].copy_(rows["xk"])
                 ce["xv"][i].copy_(rows["xv"])
     return _unembed(cfg, params, h[:, -1:, :]), cache
-
-
-def _ring_fill(dst: torch.Tensor, kv: torch.Tensor, S: int, W: int) -> None:
-    """Write one layer's prefill K/V (B,S,Hkv,hd) into its cache (B,W,...)
-    in place; a ring of width W < S keeps the last W positions at slot
-    ``pos mod W``."""
-    if S >= W:
-        slots = torch.arange(S - W, S, device=dst.device) % W
-        dst[:, slots] = kv[:, S - W:].to(dst.dtype)
-    else:
-        dst[:, :S] = kv.to(dst.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -591,28 +585,42 @@ def _attn_group_decode(cfg: ModelConfig, g: LayerGroup, gp: Params,
     for i, lp in enumerate(_layer_params(gp)):
         lk, lv = ce["k"][i], ce["v"][i]
         hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
-        q = (hn @ lp["wq"]).reshape(B, 1, cfg.n_heads, cfg.hd)
-        k1 = (hn @ lp["wk"]).reshape(B, 1, cfg.n_kv_heads, cfg.hd)
-        v1 = (hn @ lp["wv"]).reshape(B, 1, cfg.n_kv_heads, cfg.hd)
+        q = evenly(hn @ lp["wq"], cfg.n_heads).reshape(
+            B, 1, cfg.n_heads, cfg.hd)
+        k1 = evenly(hn @ lp["wk"], cfg.n_kv_heads).reshape(
+            B, 1, cfg.n_kv_heads, cfg.hd)
+        v1 = evenly(hn @ lp["wv"], cfg.n_kv_heads).reshape(
+            B, 1, cfg.n_kv_heads, cfg.hd)
         q = apply_rope(q, positions, cfg.rope_theta)
         k1 = apply_rope(k1, positions, cfg.rope_theta)
         # write the new K/V at (row, t mod W) before attending, in place
-        lk.index_put_((rows, slot), k1[:, 0].to(lk.dtype))
-        lv.index_put_((rows, slot), v1[:, 0].to(lv.dtype))
+        put_slots(lk, rows, slot, k1[:, 0].to(lk.dtype))
+        put_slots(lv, rows, slot, v1[:, 0].to(lv.dtype))
         if g.window > 0:
-            a = gqa_attention(q, lk, lv, mask)
+            a = rows_and_heads(gqa_attention, (q, lk, lv, mask),
+                               ((0, 2), (0, 2), (0, 2), (0, None)),
+                               ((0, 2),), (q.shape,), (cfg.n_kv_heads,))
         else:
-            a = kernel_ops.decode_attention(q[:, 0].contiguous(), lk, lv,
-                                            vlen)[:, None]
-        h = h + a.reshape(B, 1, cfg.n_heads * cfg.hd) @ lp["wo"]
+            q0 = q[:, 0].contiguous()
+            a = rows_and_heads(kernel_ops.decode_attention,
+                               (q0, lk, lv, vlen),
+                               ((0, 1), (0, 2), (0, 2), (0, None)),
+                               ((0, 1),), (q0.shape,),
+                               (cfg.n_kv_heads,))[:, None]
+        h = h + settled(evenly(a, cfg.n_heads, dim=2).reshape(
+            B, 1, cfg.n_heads * cfg.hd) @ lp["wo"])
         if g.cross_attn:
             # the flash kernel with one non-causal query, q without RoPE,
             # as in the JAX package's decode
             hx = rms_norm(h, lp["ln_x"], cfg.norm_eps)
-            qx = (hx @ lp["xwq"]).reshape(B, 1, cfg.n_heads, cfg.hd)
-            ax = kernel_ops.attention(qx, ce["xk"][i], ce["xv"][i],
-                                      causal=False, window=0)
-            h = h + ax.reshape(B, 1, cfg.n_heads * cfg.hd) @ lp["xwo"]
+            qx = evenly(hx @ lp["xwq"], cfg.n_heads).reshape(
+                B, 1, cfg.n_heads, cfg.hd)
+            ax = rows_and_heads(kernel_ops.attention,
+                                (qx, ce["xk"][i], ce["xv"][i]),
+                                ((0, 2),) * 3, ((0, 2),), (qx.shape,),
+                                (cfg.n_kv_heads,), causal=False, window=0)
+            h = h + settled(evenly(ax, cfg.n_heads, dim=2).reshape(
+                B, 1, cfg.n_heads * cfg.hd) @ lp["xwo"])
         f, _ = _ffn(cfg, g, lp, rms_norm(h, lp["ln2"], cfg.norm_eps))
         h = h + f
     return h

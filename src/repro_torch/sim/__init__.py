@@ -1,8 +1,7 @@
 """Discrete-event simulation substrate of the port.
 
 Copy of ``src/repro/sim/__init__.py`` (the port imports nothing of
-``repro``), exporting the same names.  The sharded core (``sim/shard.py``)
-is not ported: ``simulate`` refuses ``Experiment.shards > 1``.
+``repro``), exporting the same names.
 """
 from .engine import SimEnv
 from .workload import (ArrivalProcess, BurstRate, ConstantRate, DiurnalRate,

@@ -1,8 +1,6 @@
 """Minimal deterministic discrete-event engine implementing ``core.sgs.Env``.
 
-Copy of ``src/repro/sim/engine.py`` (the port imports nothing of ``repro``),
-without ``run_until_before``, which only the JAX package's sharded core
-(``sim/shard.py``, not ported) uses.
+Copy of ``src/repro/sim/engine.py`` (the port imports nothing of ``repro``).
 """
 from __future__ import annotations
 
@@ -50,6 +48,26 @@ class SimEnv:
         n = 0
         try:
             while events and events[0][0] <= t_end:
+                t, _, fn, args = pop(events)
+                self._now = t
+                n += 1
+                fn(*args)
+        finally:
+            self.n_events += n
+        self._now = max(self._now, t_end)
+
+    def run_until_before(self, t_end: float) -> None:
+        """Like :meth:`run_until` but with an *exclusive* bound: processes
+        every event with ``t < t_end`` (strictly), then advances the clock to
+        ``t_end``.  The sharded core (``repro_torch.sim.shard``) uses this for
+        lookahead barriers placed exactly on a potential event time — the
+        event at ``t_end`` must run in the *next* epoch, after cross-shard
+        state for ``t_end`` has been exchanged."""
+        events = self._events
+        pop = heapq.heappop
+        n = 0
+        try:
+            while events and events[0][0] < t_end:
                 t, _, fn, args = pop(events)
                 self._now = t
                 n += 1

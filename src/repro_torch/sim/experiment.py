@@ -27,10 +27,8 @@ the default analytic simulation — ``stub`` scripted times, or ``torch`` /
 real-execution scenarios are ordinary sweep cells.
 
 Copy of ``src/repro/sim/experiment.py`` (the port imports nothing of
-``repro``), with two differences: ``Experiment.shards > 1`` raises
-``NotImplementedError`` (the sharded core, ``sim/shard.py``, is not ported),
-and ``run_sweep`` runs cells whose backend times work on a device one after
-another instead of in its process pool.
+``repro``), with one difference: ``run_sweep`` runs cells whose backend
+times work on a device one after another instead of in its process pool.
 """
 from __future__ import annotations
 
@@ -186,9 +184,14 @@ class Experiment:
     # the archipelago stack's LBS replica pool autoscales from observed
     # decision-clock utilization instead of the static params["n_lbs"]
     autoscale: Optional[AutoscaleConfig] = None
-    # sharded parallel core (the JAX package's sim/shard.py): not ported, so
-    # a count above 1 raises in ``simulate`` (ROADMAP, Queue 1); None and 1
-    # run the single-process path
+    # sharded parallel core (sim/shard.py, docs/PERF.md "Sharded core"): N > 1
+    # partitions the SGSs into N process-local islands advancing their own
+    # event loops, synchronized at LBS epoch boundaries.  None (the default)
+    # keeps the single-process path untouched; any shard count is required
+    # to produce byte-identical ExperimentResult rows (a hard contract,
+    # pinned by tests/test_shards.py, and in the port
+    # by tests/test_torch_shards.py).  Sweepable like any top-level field:
+    # ``run_sweep(base, {"shards": [None, 2, 4]})``.
     shards: Optional[int] = None
     name: str = ""
 
@@ -502,14 +505,20 @@ def simulate(exp: Experiment, *,
     and may mutate the stack — they exist so benchmarks never have to
     re-plumb the pump by hand.
 
-    ``exp.shards`` > 1 raises ``NotImplementedError``: the JAX package's
-    sharded parallel core (``sim/shard.py``) is not ported yet.
+    ``exp.shards`` > 1 routes the run through the sharded parallel core
+    (``repro_torch.sim.shard``): SGS islands advance in separate processes with
+    epoch synchronization at LBS decision boundaries, returning a result
+    byte-identical to this single-process path.  Inside a daemonic
+    ``run_sweep`` pool worker (which cannot spawn children) the request is
+    honored by the sequential path instead — identical rows either way.
     """
     if exp.shards is not None and int(exp.shards) > 1:
-        raise NotImplementedError(
-            f"Experiment.shards={exp.shards}: the sharded core (the JAX "
-            f"package's sim/shard.py) is not ported yet (ROADMAP, Queue 1, "
-            f"'Sharded core'); run with shards=None")
+        import multiprocessing
+
+        from .shard import simulate_sharded, validate_shardable
+        validate_shardable(exp, hooks, timed_calls)
+        if not multiprocessing.current_process().daemon:
+            return simulate_sharded(exp)
     exp_spec, sim, stack, wall = _run_experiment(exp, hooks, timed_calls)
     counters = stack.counters()
     warm_hits = counters.get("warm_hits", 0)

@@ -144,13 +144,6 @@ def test_stub_simulate_matches_jax(backend, kwargs, faults):
     assert row["backend_counters"]["n_executions"] > 0
 
 
-def test_sharded_simulate_is_refused():
-    exp = _experiment((tcore, tsim))
-    exp.shards = 2
-    with pytest.raises(NotImplementedError, match="sharded core"):
-        tsim.simulate(exp)
-
-
 # -- registries -------------------------------------------------------------------
 
 

@@ -2,6 +2,8 @@
 against the JAX oracles and the Pallas kernels (interpret mode), device
 dispatch, and the ``valid_len = 0`` contract.  The CUDA kernels themselves
 run in tests/test_torch_cuda.py and chip_smoke.py, on the card."""
+import sys
+
 import numpy as np
 import pytest
 
@@ -120,11 +122,17 @@ def test_ops_take_the_plain_path_on_cpu_without_launching():
                                 "ssd": ssd_scan}
 
 
-def test_wrappers_refuse_devices_without_a_path():
+def test_wrappers_refuse_devices_without_a_path(monkeypatch):
+    """A device that is neither plain (``ref.PLAIN_DEVICES``: the CPU, and
+    meta for the dry-run) nor CUDA raises.  This build has no such device,
+    so meta stands for one, dropped from the plain devices."""
+    for name in ("flash_attention", "decode_attention"):
+        monkeypatch.setattr(sys.modules[f"repro_torch.kernels.{name}"],
+                            "PLAIN_DEVICES", ("cpu",))
     q = torch.empty((1, 4, 2, 64), device="meta")
-    with pytest.raises(ValueError, match="cpu or cuda"):
+    with pytest.raises(ValueError, match="cpu, meta or cuda"):
         flash_attention(q, q, q)
-    with pytest.raises(ValueError, match="cpu or cuda"):
+    with pytest.raises(ValueError, match="cpu, meta or cuda"):
         decode_attention(q[:, 0], q, q, torch.empty((1,), device="meta"))
 
 

@@ -199,9 +199,10 @@ def test_one_token_step_continues_the_scan():
     np.testing.assert_allclose(_np(s1), _np(s_all), **F32_TOL)
 
 
-def test_kernel_checks_refuse_what_it_does_not_take():
+def test_kernel_checks_refuse_what_it_does_not_take(monkeypatch):
     """The wrapper's checks, run on CPU tensors (the kernel itself only
-    runs on the card)."""
+    runs on the card); last, a device neither plain nor CUDA (meta, dropped
+    from ``PLAIN_DEVICES``: this build has no other) is refused."""
     _, t = _both(_inputs(7, 1, 64, 2, 32, 16), "float32")
     ssd_mod._check(*t, 64, None)                       # accepted
     with pytest.raises(ValueError, match="head dims"):
@@ -221,7 +222,8 @@ def test_kernel_checks_refuse_what_it_does_not_take():
     with pytest.raises(ValueError, match="takes"):
         ssd_mod._check(*(a.half() for a in (x, dt)), A,
                        *(a.half() for a in (Bm, Cm)), 64, None)
+    monkeypatch.setattr(ssd_mod, "PLAIN_DEVICES", ("cpu",))
     m = torch.empty((1, 4, 2, 32), device="meta")
-    with pytest.raises(ValueError, match="cpu or cuda"):
+    with pytest.raises(ValueError, match="cpu, meta or cuda"):
         ssd_scan(m, m[..., 0], m[0, 0, :, 0], m[..., 0, :16],
                  m[..., 0, :16], chunk=16)

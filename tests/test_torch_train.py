@@ -459,9 +459,10 @@ def test_ssd_scan_function_takes_no_gradient_of_the_final_state():
 @pytest.mark.parametrize("kernel", ["flash", "ssd"])
 def test_wrappers_take_the_function_only_to_carry_a_gradient(kernel,
                                                              monkeypatch):
-    """On a tensor off the CPU (meta here, for CUDA) the wrapper launches
-    directly when no input requires a gradient (serving) and through the
-    kernel's Function otherwise; each launch counts once."""
+    """On a tensor off the plain devices (meta here, dropped from
+    ``PLAIN_DEVICES``, for CUDA) the wrapper launches directly when no input
+    requires a gradient (serving) and through the kernel's Function
+    otherwise; each launch counts once."""
     calls = []
     if kernel == "flash":
         mod = fa_mod
@@ -486,6 +487,7 @@ def test_wrappers_take_the_function_only_to_carry_a_gradient(kernel,
         run = lambda a: ssd_mod.ssd_scan(*a, chunk=16)[0]  # noqa: E731
         fn_name = "SSDScanFnBackward"
     monkeypatch.setattr(mod, "_launch", launch)
+    monkeypatch.setattr(mod, "PLAIN_DEVICES", ("cpu",))
     assert run(args).grad_fn is None
     with torch.no_grad():
         assert run([a.requires_grad_(True) for a in args]).grad_fn is None
