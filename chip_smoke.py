@@ -45,9 +45,17 @@ gradient on every leaf, every leaf changed, each kernel launched twice a
 layer a step (forward and remat recompute), and profiling one more step.
 Phase 12 runs the multi-device dry-run (``repro_torch.launch.dryrun``) of
 three combinations at published width and depth on a fake 256-rank mesh,
-in three processes on the host, then prices phase 7's joins and steps and
+in three processes on the host, holds their counts to
+``launch/dryrun_counts.json`` (made on another torch version) within 1e-9
+and the MoE's to an all-to-all, then prices phase 7's joins and steps and
 phase 11's training steps with the dry-run's cost model and asserts that
-no bound exceeds the busy time the card measured.  Phase 4 times each
+no bound exceeds the busy time the card measured.  Phase 13 runs the
+serving launcher: ``python -m repro_torch.launch.serve`` as a user runs it
+(reduced minicpm-2b, continuous ``torch-batched``, no ``--device``), then
+its ``build_experiment`` at published width and depth, minicpm-2b on the
+per-invocation ``torch`` backend and mamba2-370m alone on continuous
+``torch-batched``, asserting that every request completes once and that
+each kernel launched as the layer groups reckon.  Phase 4 times each
 plain version behind a 25 ms device-side sleep, which outlasts the host's
 enqueue of its launches.
 Any failed phase raises and the script
@@ -69,7 +77,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 ROOT = Path(__file__).resolve().parent
 
@@ -162,9 +170,9 @@ MT_RPS, MT_DURATION = 3.0, 4.0
 
 # (B, S, H, P, N, chunk, init_state): tests/test_kernels.py SSD_CASES, its
 # init-state case, S no multiple of the chunk (130 is the model-parity
-# prompt below), the mamba2-370m serving join at buckets 8 and 1, and a
-# ragged S of more than 8 chunks with an initial state (several chunks a
-# CTA)
+# prompt below), the mamba2-370m serving join at buckets 8, 1, 2 and 4
+# (the continuous joins of phases 8 and 13), and a ragged S of more than 8
+# chunks with an initial state (several chunks a CTA)
 SSD_CASES = [
     (2, 128, 4, 64, 32, 64, False),
     (1, 64, 2, 32, 16, 16, False),
@@ -175,6 +183,8 @@ SSD_CASES = [
     (1, 100, 2, 32, 32, 16, True),
     (8, 512, 32, 64, 128, 64, False),
     (1, 512, 32, 64, 128, 64, False),
+    (2, 512, 32, 64, 128, 64, False),
+    (4, 512, 32, 64, 128, 64, False),
     (2, 1100, 4, 64, 128, 64, True),
 ]
 
@@ -234,6 +244,24 @@ PLAIN_SLEEP = 50_000_000
 DRYRUN_COMBOS = (("minicpm-2b", "decode_32k"), ("mixtral-8x22b", "train_4k"),
                  ("gemma3-1b", "long_500k"))
 DRYRUN_TIMEOUT = 240
+# Phase 13: the serving launcher.  (a) Its command line as a user runs it:
+# the reduced config, as the reference's launcher takes, and no --device,
+# so on the card
+LAUNCHER_CLI = ("--arch", "minicpm-2b", "--backend", "torch-batched",
+                "--batching", "continuous", "--requests", "16", "--rps", "8")
+# (b) Its build_experiment at published width and depth: minicpm-2b on the
+# launcher's default per-invocation backend, mamba2-370m alone on
+# continuous torch-batched, at the serving prompt of phases 6-8 (512), so
+# that every kernel runs at shapes phase 3 holds against its plain version
+# (flash (1, 512, 512, 36, 36, 64), decode (1, L 544, 36, 36, 64), the SSD
+# scan (b, 512, 32, 64, 128) for buckets b 1, 2, 4, 8); the phase checks it
+LAUNCHER_RUNS = (
+    ("minicpm-2b", ("--backend", "torch", "--requests", "12", "--rps", "4",
+                    "--prompt", "512", "--gen", "32")),
+    ("mamba2-370m", ("--backend", "torch-batched", "--batching",
+                     "continuous", "--requests", "16", "--rps", "8",
+                     "--prompt", "512", "--gen", "8")))
+LAUNCHER_TIMEOUT = 300
 
 
 def log(*a) -> None:
@@ -327,6 +355,52 @@ def windowed_launches(be, served: Dict[str, Any],
         for op in want:
             want[op] += join[op] * prefills + step[op] * steps
     return want
+
+
+def counted_runs(ex, fns) -> Dict[str, Dict[str, int]]:
+    """Wrap a continuous executor's ``admit`` and ``step`` so that they
+    count, per function, the serving run's joins, decode ticks and step
+    slots (into the dict returned)."""
+    runs = {fn: {"joins": 0, "ticks": 0, "slots": 0} for fn in fns}
+    admit, step = ex.admit, ex.step
+
+    def counted_admit(fn, invs, slots):
+        runs[fn]["joins"] += 1
+        return admit(fn, invs, slots)
+
+    def counted_step(fn, slots):
+        runs[fn]["ticks"] += 1
+        runs[fn]["slots"] += len(slots)
+        return step(fn, slots)
+
+    ex.admit, ex.step = counted_admit, counted_step
+    return runs
+
+
+def continuous_launches(be, served: Dict[str, Any],
+                        runs: Dict[str, Dict[str, int]]) -> Dict[str, int]:
+    """Launches of a continuous ``torch-batched`` run: every bucket joins
+    and steps once in set-up and ``calib_runs`` times in calibration, then
+    the serving run's joins and ticks (``counted_runs``)."""
+    pre = len(be.executor.buckets()) * (1 + be.calib_runs)
+    want = {"attention": 0, "decode_attention": 0, "ssd": 0}
+    for fn, sm in served.items():
+        join, step = group_launches(sm.cfg)
+        for op in want:
+            want[op] += (join[op] * (pre + runs[fn]["joins"])
+                         + step[op] * (pre + runs[fn]["ticks"]))
+    return want
+
+
+def per_invocation_launches(be, sm) -> Dict[str, int]:
+    """Launches of a ``torch`` (per-invocation) run of one served model
+    ``sm``: its instance prefills and steps once in set-up, then runs
+    ``calib_runs`` times in calibration and once per execution; a run is
+    one prefill and ``gen_len`` steps."""
+    runs = be.calib_runs + be.executor.n_executions
+    join, step = group_launches(sm.cfg)
+    return {op: join[op] * (1 + runs) + step[op] * (1 + runs * sm.gen_len)
+            for op in join}
 
 
 def release(backend) -> None:
@@ -468,19 +542,7 @@ def scheduler_phase(dev, chat_cfg, ssm_cfg, smi: str, prompt_len: int = 512,
     calib_s = time.perf_counter() - t0
     ex = backend.executor
     # per-function joins, decode ticks and step slots of the serving run
-    runs = {fn: {"joins": 0, "ticks": 0, "slots": 0} for fn in fns}
-    admit, step = ex.admit, ex.step
-
-    def counted_admit(fn, invs, slots):
-        runs[fn]["joins"] += 1
-        return admit(fn, invs, slots)
-
-    def counted_step(fn, slots):
-        runs[fn]["ticks"] += 1
-        runs[fn]["slots"] += len(slots)
-        return step(fn, slots)
-
-    ex.admit, ex.step = counted_admit, counted_step
+    runs = counted_runs(ex, fns)
     r = simulate(exp)
     got = kops.launch_counts()
     wall = time.perf_counter() - t0
@@ -504,13 +566,9 @@ def scheduler_phase(dev, chat_cfg, ssm_cfg, smi: str, prompt_len: int = 512,
             or sum(v["ticks"] for v in runs.values()) != bc["n_decode_ticks"]):
         raise AssertionError(f"phase 8: per-function runs {runs} against "
                              f"the batcher's {bc}")
-    # every bucket ran once in set-up and calib_runs times in calibration,
-    # join and step; then the serving run's joins and ticks
-    pre = len(ex.buckets()) * (1 + backend.calib_runs)
-    want = {"attention": chat_cfg.n_layers * (pre + runs["chat/gen"]["joins"]),
-            "decode_attention": chat_cfg.n_layers
-            * (pre + runs["chat/gen"]["ticks"]),
-            "ssd": ssm_cfg.n_layers * (pre + runs["ssm/gen"]["joins"])}
+    want = continuous_launches(backend, {fn: sm for a in apps
+                                         for fn, sm in a.models.items()},
+                               runs)
     occupancy = {fn: v["slots"] / max(1, v["ticks"]) for fn, v in runs.items()}
     log(f"[scheduler] per function {runs}; mean decode occupancy "
         f"{occupancy}; launches {got}, expected {want}")
@@ -976,17 +1034,38 @@ def train_run(cfg, dev, smi: str, *, steps: int, batch: int, seq: int,
     return out
 
 
-def dryrun_phase(smi: str) -> Dict[str, Any]:
+def count_mismatch(got: Dict[str, Any], ref: Dict[str, Any],
+                   rel: float = 1e-9) -> list:
+    """The keys (``coll_by_axis`` per axis) where two dry-run counts differ
+    by more than ``rel`` of the recorded one."""
+    off = []
+    for key, want in ref.items():
+        have = got.get(key)
+        if isinstance(want, dict):
+            have = have or {}
+            off += [f"{key}[{axis}]" for axis in sorted({*want, *have})
+                    if abs(have.get(axis, 0.0) - want.get(axis, 0.0))
+                    > rel * abs(want.get(axis, 0.0))]
+        elif have is None or abs(have - want) > rel * abs(want):
+            off.append(key)
+    return off
+
+
+def dryrun_phase(smi: str, get_config) -> Dict[str, Any]:
     """Phase 12 (a): ``python -m repro_torch.launch.dryrun`` for each of
     ``DRYRUN_COMBOS`` at full width and depth on the (data 32, model 8)
     mesh of 256 fake ranks, one process each, all at once (host work on
     meta tensors: nothing runs on the card).  Asserts non-zero FLOPs and
-    bytes and collectives over some axis; prints the three roofline terms
-    and the arguments' bytes a device against the card's 80 GB."""
+    bytes and collectives over some axis, counts equal within 1e-9 to
+    ``launch/dryrun_counts.json``'s (made on another torch version: the
+    counts depend on none) and, for an MoE model, an all-to-all priced;
+    prints the three roofline terms and the arguments' bytes a device
+    against the card's 80 GB."""
     import os
-    from repro_torch.launch.dryrun import RESULTS_DIR
+    from repro_torch.launch.dryrun import COUNT_KEYS, COUNTS_FILE, RESULTS_DIR
     from repro_torch.launch.mesh import HBM_BYTES
     from repro_torch.launch.roofline import terms
+    recorded = json.loads(COUNTS_FILE.read_text())
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
     procs = {c: subprocess.Popen(
@@ -1007,6 +1086,24 @@ def dryrun_phase(smi: str) -> Dict[str, Any]:
                     and rec["coll_by_axis"]):
                 raise AssertionError(f"phase 12: {arch} x {shape} counted "
                                      f"nothing: {rec}")
+            # the counts do not depend on the torch version
+            ref = recorded["counts"][f"{arch}:{shape}:single"]
+            got = {k: rec[k] for k in COUNT_KEYS}
+            off = count_mismatch(got, ref)
+            log(f"[dryrun] {arch} x {shape}: counts on torch "
+                f"{rec['torch_version']} against {COUNTS_FILE.name}'s on "
+                f"torch {recorded['torch_version']}: "
+                + (f"differ in {off}" if off else "equal within 1e-9"))
+            if off:
+                raise AssertionError(f"phase 12: {arch} x {shape} counts "
+                                     f"{got} on torch "
+                                     f"{rec['torch_version']}, recorded "
+                                     f"{ref} on torch "
+                                     f"{recorded['torch_version']}")
+            if get_config(arch).n_experts and \
+                    not rec["coll_by_kind"]["all-to-all"] > 0:
+                raise AssertionError(f"phase 12: {arch} x {shape} priced "
+                                     f"no all-to-all: {rec['coll_calls']}")
             t = terms(rec)
             arg = rec["argument_size_in_bytes"]
             log(f"[dryrun] {arch} x {shape} on {rec['mesh']} "
@@ -1099,6 +1196,175 @@ def anchor_phase(report: Dict[str, Any], get_config,
                     f"{busy[what]:.3f} ms busy")
         out[model] = work
     return out
+
+
+def kernel_shapes(kops) -> Tuple[Dict[str, set], Any]:
+    """Wrap the three ``kernels.ops`` wrappers so that they note the case
+    each call is, in the form of ``FA_CASES`` / ``DEC_CASES`` (without
+    zero_row) / ``SSD_CASES``, beside its dtype.  Returns the notes and a
+    function that takes the wrappers off."""
+    seen = {"flash_attention": set(), "decode_attention": set(),
+            "ssd_scan": set()}
+    orig = {op: getattr(kops, op) for op in ("attention", "decode_attention",
+                                             "ssd")}
+
+    def dn(t):
+        return str(t.dtype).split(".")[1]
+
+    def fa(q, k, v, *, causal=True, window=0):
+        seen["flash_attention"].add(((*q.shape[:2], k.shape[1], q.shape[2],
+                                      *k.shape[2:], causal, window), dn(q)))
+        return orig["attention"](q, k, v, causal=causal, window=window)
+
+    def dec(q, k, v, valid_len):
+        seen["decode_attention"].add(((q.shape[0], k.shape[1], q.shape[1],
+                                       *k.shape[2:]), dn(q)))
+        return orig["decode_attention"](q, k, v, valid_len)
+
+    def ssd(x, dt, A, Bm, Cm, *, chunk, init_state=None):
+        seen["ssd_scan"].add(((*x.shape, Bm.shape[-1], chunk,
+                               init_state is not None), dn(x)))
+        return orig["ssd"](x, dt, A, Bm, Cm, chunk=chunk,
+                           init_state=init_state)
+
+    kops.attention, kops.decode_attention, kops.ssd = fa, dec, ssd
+
+    def restore():
+        for op, fn in orig.items():
+            setattr(kops, op, fn)
+    return seen, restore
+
+
+def held_errors(seen: Dict[str, set], errs: Dict[str, Any]
+                ) -> Dict[str, float]:
+    """The largest of phase 3's errors (``errs``) at the cases ``seen``
+    (``kernel_shapes``), per kernel; raises where a case seen is not one
+    that phase 3 held against the plain version."""
+    out = {}
+    for kname, cases in seen.items():
+        held = {(c[:5] if kname == "decode_attention" else c, dn): e
+                for (c, dn), e in errs[kname].items()}
+        missing = sorted(str(c) for c in cases if c not in held)
+        if missing:
+            raise AssertionError(f"phase 13: {kname} ran at cases that "
+                                 f"phase 3 did not check: {missing}")
+        if cases:
+            out[kname] = max(held[c] for c in cases)
+    return out
+
+
+def launcher_phase(dev, smi: str, cfgs: Dict[str, Any],
+                   errs: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """Phase 13: the serving launcher.  (a) ``python -m
+    repro_torch.launch.serve`` with ``LAUNCHER_CLI`` in a process of its
+    own, as a user runs it: every request completed, and the data plane
+    names the device.  (b) For each of ``LAUNCHER_RUNS``, the launcher's
+    ``parse_args`` and ``build_experiment`` with ``cfgs[arch]`` (published
+    width and depth on the card), its backend calibrated apart from the
+    serving run (timed)
+    and then ``simulate``: every request completed once, nothing lost, and
+    each kernel launched as the groups reckon over the whole run (launch
+    counts set to 0 before calibration and read after the run).  With
+    phase 3's errors ``errs``, every kernel call of (b) must be at a case
+    phase 3 checked (``held_errors``).  Off the card both parts take
+    ``--device`` for ``dev``."""
+    import os
+    from repro_torch.kernels import ops as kops
+    dev_args = () if dev.type == "cuda" else ("--device", str(dev))
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", *LAUNCHER_CLI,
+           *dev_args]
+    p = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                       env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                       timeout=LAUNCHER_TIMEOUT)
+    cli_s = time.perf_counter() - t0
+    log(f"[launcher] {' '.join(cmd[1:])}: rc {p.returncode}, {cli_s:.1f} s; "
+        f"{smi}")
+    for ln in p.stdout.splitlines():
+        log(f"[launcher]   {ln}")
+    if p.returncode:
+        raise AssertionError(f"phase 13: the launcher failed:\n"
+                             f"{p.stderr[-3000:]}")
+    m = re.search(r" n=(\d+) done=(\d+) ", p.stdout)
+    plane = [ln for ln in p.stdout.splitlines()
+             if ln.lstrip().startswith("executions:")]
+    if not m or int(m[1]) == 0 or m[1] != m[2]:
+        raise AssertionError(f"phase 13: the launcher did not complete "
+                             f"every request:\n{p.stdout}")
+    if len(plane) != 1 or f"device={dev.type}" not in plane[0]:
+        raise AssertionError(f"phase 13: the launcher's data plane is not "
+                             f"on {dev.type}:\n{p.stdout}")
+    out = {"cli": {"argv": cmd[3:], "stdout": p.stdout, "n": int(m[1]),
+                   "done": int(m[2]), "seconds": cli_s}}
+
+    seen, restore = kernel_shapes(kops)
+    try:
+        for arch, flags in LAUNCHER_RUNS:
+            out[arch] = launcher_run(dev, smi, cfgs[arch], arch, flags,
+                                     dev_args)
+    finally:
+        restore()
+    out["cases"] = {k: sorted(map(list, v)) for k, v in seen.items()}
+    if errs is not None:
+        out["max_abs_err"] = held_errors(seen, errs)
+        log(f"[launcher] kernel cases {out['cases']}, all checked in phase "
+            f"3; largest error there {out['max_abs_err']}")
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def launcher_run(dev, smi: str, cfg, arch: str, flags, dev_args
+                 ) -> Dict[str, Any]:
+    """One of phase 13 (b)'s runs (``launcher_phase``)."""
+    from repro_torch.core.backends import resolve_backend
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.serve import build_experiment, parse_args
+    from repro_torch.sim import simulate
+    t1 = time.perf_counter()
+    args = parse_args(["--arch", arch, *flags, *dev_args])
+    exp = build_experiment(args, cfg)
+    be = resolve_backend(exp.backend, exp.backend_kwargs)
+    exp = dataclasses.replace(exp, backend=be, backend_kwargs={})
+    served = {fn: sm for app in exp.workload_kwargs["apps"]
+              for fn, sm in app.models.items()}
+    continuous = args.backend == "torch-batched" \
+        and args.batching == "continuous"
+    if args.backend != "torch" and not continuous:
+        raise ValueError(f"phase 13 reckons launches of torch and "
+                         f"continuous torch-batched runs, not {flags}")
+    kops.reset_launch_counts()
+    # calibration (simulate finds the backend calibrated and reuses it)
+    be.build(exp, exp.resolve_workload())
+    calib_s = time.perf_counter() - t1
+    count = counted_runs(be.executor, served) if continuous else None
+    r = simulate(exp)
+    got = kops.launch_counts()
+    want = (continuous_launches(be, served, count) if continuous
+            else per_invocation_launches(be, *served.values()))
+    wall = time.perf_counter() - t1
+    lat = r.latency_percentiles
+    log(f"[launcher] {arch} ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}), {' '.join(flags)}: {r.n_completed}/"
+        f"{r.n_requests} requests after the warm-up, p50 "
+        f"{(lat['p50'] or 0) * 1e3:.1f} ms, p99 "
+        f"{(lat['p99'] or 0) * 1e3:.1f} ms, deadlines met "
+        f"{(r.deadline_met_frac or 0) * 100:.2f} %, cold starts "
+        f"{r.cold_start_count} (simulated clock, advanced by measured "
+        f"device time); data plane {r.data_plane}; calibration "
+        f"{calib_s:.1f} s (kernel build {be.executor.build_seconds:.1f} "
+        f"s), run {r.wall_s:.1f} s; launches {got}, expected {want}; "
+        f"{smi}")
+    check_served(f"phase 13 {arch}", r)
+    if r.data_plane.get("device") != dev.type:
+        raise AssertionError(f"phase 13: {arch} data plane "
+                             f"{r.data_plane}")
+    if got != want or not any(got.values()):
+        raise AssertionError(f"phase 13: {arch} kernel launches {got}, "
+                             f"expected {want}")
+    release(be)
+    return {"flags": list(flags), "result": r.detach_sim().to_dict(),
+            "calibration_s": calib_s, "build_s": be.executor.build_seconds,
+            "phase_s": wall, "launches": got, "runs": count}
 
 
 def main() -> int:
@@ -1598,8 +1864,14 @@ def main() -> int:
         report["train"][model] = {"grad_parity": par, **run}
 
     # -- 12. the dry-run, and its cost model against the card -----------------
-    report["dryrun"] = dryrun_phase(smi)
+    report["dryrun"] = dryrun_phase(smi, get_config)
     report["anchor"] = anchor_phase(report, get_config, smi)
+    torch.cuda.empty_cache()
+
+    # -- 13. the serving launcher -------------------------------------------------
+    report["launcher"] = launcher_phase(
+        dev, smi, {arch: get_config(arch) for arch, _ in LAUNCHER_RUNS},
+        errs)
 
     # -- result -------------------------------------------------------------------
     # each kernel: its launches over all of serve() on its own path, and the
@@ -1629,14 +1901,22 @@ def main() -> int:
         kernels.append({"name": kname, "route": "cuda", "source": src,
                         "replaces": tpu, "pr": pr, "design": design,
                         "launches": path_launches[model][op],
-                        # this slice's path: phase 10's multi-tenant run
+                        # phase 10's multi-tenant run
                         "launches_multitenant":
                             report["multitenant"]["launches"][op],
+                        # this slice's path: phase 13 (b), the launcher's
+                        # run of the model at published width
+                        "launches_launcher":
+                            report["launcher"][model]["launches"][op],
                         # phase 11's training steps of the model
                         **({"launches_train": report["train"][model][
                             "launches"][op]} if op != "decode_attention"
                            else {}),
                         "max_abs_err": errs[kname][(case, "bfloat16")],
+                        # phase 3's largest error at the cases phase 13 (b)
+                        # ran
+                        "max_abs_err_launcher":
+                            report["launcher"]["max_abs_err"][kname],
                         # phase 11 (a): bf16, under autograd, at the
                         # training shape
                         **({"max_abs_err_train": report["train"][

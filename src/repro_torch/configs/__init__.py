@@ -36,6 +36,10 @@ def get_config(arch: str, reduced: bool = False) -> ModelConfig:
     return m.REDUCED if reduced else m.CONFIG
 
 
+def all_configs(reduced: bool = False) -> Dict[str, ModelConfig]:
+    return {a: get_config(a, reduced) for a in ARCH_IDS}
+
+
 # ---------------------------------------------------------------------------
 # Input shapes assigned to this paper
 # ---------------------------------------------------------------------------

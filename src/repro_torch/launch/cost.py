@@ -183,10 +183,15 @@ class DeviceCostMode(TorchDispatchMode):
         group_name = kwargs.get("group_name", args[-1])
         if not isinstance(group_name, str):
             group_name = getattr(group_name, "group_name", str(group_name))
-        axis, size = self.groups.get(group_name, ("world", None))
-        if size is None:
+        if group_name in self.groups:
+            axis, size = self.groups[group_name]
+        elif self.groups:
+            raise RuntimeError(f"a {kind} on process group {group_name}, "
+                               f"which is no dim of the mesh priced "
+                               f"({sorted(self.groups)})")
+        else:
             import torch.distributed as dist
-            size = dist.get_world_size()
+            axis, size = "world", dist.get_world_size()
         operand, result = _nbytes(args[0]), _nbytes(out)
         wire = collective_wire_bytes(kind, operand, result, size)
         self.coll_by_kind[kind] += wire

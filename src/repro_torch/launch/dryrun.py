@@ -54,8 +54,13 @@ RESULTS_DIR = Path(__file__).resolve().parents[3] / "results" / \
 DEVICE = "H100 SXM (data sheet)"
 MESH_WORLD = {"single": 256, "multi": 512}
 # the meshes' device type: DTensor's sharding propagation makes fake tensors
-# on it, which needs a device this build of torch has (see gpu_alltoall)
+# on it, which needs a device this build of torch has (a "cuda" mesh fails
+# on a CPU-only torch, a "meta" one has no device handle)
 MESH_DEVICE = "cpu"
+# the counts of chip_smoke.py phase 12's combinations, which it holds the
+# GPU machine's torch version to (``--write-counts`` writes them)
+COUNTS_FILE = Path(__file__).with_name("dryrun_counts.json")
+COUNT_KEYS = ("flops", "bytes_accessed", "coll_by_axis")
 
 
 def fake_group(world: int) -> None:
@@ -72,36 +77,6 @@ def fake_group(world: int) -> None:
     import torch.testing._internal.distributed.fake_pg  # noqa: F401
     dist.init_process_group("fake", store=dist.HashStore(),
                             world_size=world, rank=0)
-
-
-@contextlib.contextmanager
-def gpu_alltoall():
-    """Within it, DTensor redistributes Shard(i) -> Shard(j) on a CPU mesh
-    with the all-to-all it runs on a GPU mesh, where on a CPU mesh it runs
-    an all-gather and a chunk (gloo has no all-to-all), which would price
-    g times the wire bytes.  Yields whether the swap is in place (a torch
-    whose DTensor is laid out otherwise keeps the all-gather)."""
-    from torch.distributed import _functional_collectives as funcol
-    from torch.distributed.tensor import placement_types
-    orig = getattr(placement_types, "shard_dim_alltoall", None)
-    op = getattr(getattr(torch.ops, "_dtensor", None), "shard_dim_alltoall",
-                 None)
-    if orig is None or op is None or not all(
-            hasattr(funcol, f) for f in ("_resolve_group",
-                                         "_group_or_group_name")):
-        yield False
-        return
-
-    def alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
-        group = funcol._resolve_group((mesh, mesh_dim))
-        return op(input, gather_dim, shard_dim,
-                  funcol._group_or_group_name(group))
-
-    placement_types.shard_dim_alltoall = alltoall
-    try:
-        yield True
-    finally:
-        placement_types.shard_dim_alltoall = orig
 
 
 def _meta(shape, dtype) -> torch.Tensor:
@@ -140,10 +115,13 @@ def _mesh_name(mesh) -> str:
 
 def trace_one(arch: str, shape_name: str, mesh, *,
               fsdp: Optional[bool] = None,
-              cfg: Optional[ModelConfig] = None) -> Dict[str, Any]:
+              cfg: Optional[ModelConfig] = None,
+              mode: Optional[DeviceCostMode] = None) -> Dict[str, Any]:
     """Trace one combination on ``mesh`` (a ``DeviceMesh`` over the fake
     group) and return its record.  ``cfg`` overrides the registry config
-    (``launch/perf.py``'s variants)."""
+    (``launch/perf.py``'s variants); ``mode`` is the cost mode to trace
+    under, for a caller that reads more than the record (its log of
+    collectives)."""
     from torch.distributed.tensor import distribute_tensor
     from torch.distributed.tensor.experimental import implicit_replication
     if cfg is None:
@@ -171,10 +149,10 @@ def trace_one(arch: str, shape_name: str, mesh, *,
     if "frontend" in args:
         inputs.append(args["frontend"])
     argument_bytes = _local_bytes(inputs)
-    mode = DeviceCostMode(mesh)
+    mode = DeviceCostMode(mesh) if mode is None else mode
     t0 = time.perf_counter()
     with (contextlib.nullcontext() if kind == "train" else torch.no_grad()), \
-            gpu_alltoall() as alltoall, implicit_replication(), mode:
+            implicit_replication(), mode:
         if kind == "train":
             _, _, loss = make_train_step(cfg)(*inputs)
             loss.redistribute(mesh, placements(mesh, ()))
@@ -195,13 +173,31 @@ def trace_one(arch: str, shape_name: str, mesh, *,
         "coll_by_kind": cost["coll_by_kind"],
         "coll_by_axis": cost["coll_by_axis"],
         "coll_calls": cost["coll_calls"],
-        "alltoall": ("all-to-all" if alltoall
-                     else "all-gather and chunk (CPU mesh)"),
         "argument_size_in_bytes": argument_bytes,
         # XLA's temporaries have no counterpart in an eager trace on meta
         "temp_size_in_bytes": None,
         "device": DEVICE,
+        # DTensor's rules differ between versions; the model pins every
+        # place where that changed a count (models/spmd.py), and the
+        # roofline keeps records of one version to a table
+        "torch_version": torch.__version__,
     }
+
+
+# this process's production meshes, one of each kind (production_mesh)
+_MESHES: Dict[str, Any] = {}
+
+
+def production_mesh(mesh_kind: str):
+    """This process's ``mesh_kind`` production mesh over its fake group,
+    made once.  DTensor caches the placements it propagates, with their
+    mesh: a later trace on a new mesh of the same shape would get the
+    first mesh's process groups back, which its cost mode does not know."""
+    fake_group(MESH_WORLD[mesh_kind])
+    if mesh_kind not in _MESHES:
+        _MESHES[mesh_kind] = make_production_mesh(
+            multi_pod=(mesh_kind == "multi"), device_type=MESH_DEVICE)
+    return _MESHES[mesh_kind]
 
 
 def run_combo(arch: str, shape_name: str, mesh_kind: str,
@@ -211,10 +207,7 @@ def run_combo(arch: str, shape_name: str, mesh_kind: str,
     out_json = RESULTS_DIR / f"{tag}.json"
     if out_json.exists() and not force:
         return json.loads(out_json.read_text())
-    fake_group(MESH_WORLD[mesh_kind])
-    mesh = make_production_mesh(multi_pod=(mesh_kind == "multi"),
-                                device_type=MESH_DEVICE)
-    info = trace_one(arch, shape_name, mesh)
+    info = trace_one(arch, shape_name, production_mesh(mesh_kind))
     out_json.write_text(json.dumps(info, indent=1))
     print(f"[dryrun] {tag}: OK trace={info['trace_s']}s "
           f"flops={info['flops']:.3e} bytes={info['bytes_accessed']:.3e} "
@@ -230,6 +223,9 @@ def main(argv=None) -> None:
                                                          "both"])
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--force", action="store_true")
+    ap.add_argument("--write-counts", action="store_true",
+                    help=f"write the traced combinations' {COUNT_KEYS} to "
+                         f"{COUNTS_FILE.name}")
     args = ap.parse_args(argv)
 
     if args.mesh == "both":
@@ -244,7 +240,7 @@ def main(argv=None) -> None:
     archs = ARCH_IDS if (args.all or not args.arch) else [args.arch]
     shapes = list(INPUT_SHAPES) if (args.all or not args.shape) \
         else [args.shape]
-    failures = []
+    failures, counts = [], {}
     for arch in archs:
         for shape in shapes:
             if not shape_applicable(arch, shape):
@@ -252,7 +248,9 @@ def main(argv=None) -> None:
                       f"long_500k)")
                 continue
             try:
-                run_combo(arch, shape, args.mesh, force=args.force)
+                rec = run_combo(arch, shape, args.mesh, force=args.force)
+                counts[f"{arch}:{shape}:{args.mesh}"] = {
+                    k: rec[k] for k in COUNT_KEYS}
             except Exception as e:      # report every combination
                 traceback.print_exc()
                 failures.append((arch, shape, args.mesh, repr(e)))
@@ -261,6 +259,17 @@ def main(argv=None) -> None:
         for f in failures:
             print("   ", f)
         raise SystemExit(1)
+    if args.write_counts:
+        # merged into the file's counts of the same torch version
+        old = (json.loads(COUNTS_FILE.read_text())
+               if COUNTS_FILE.exists() else {})
+        if old.get("torch_version") == torch.__version__:
+            counts = {**old["counts"], **counts}
+        COUNTS_FILE.write_text(json.dumps(
+            {"torch_version": torch.__version__,
+             "counts": dict(sorted(counts.items()))}, indent=1) + "\n")
+        print(f"[dryrun] counts of {len(counts)} combinations in "
+              f"{COUNTS_FILE}")
     print("[dryrun] all combinations traced.")
 
 

@@ -19,21 +19,23 @@ results/perf_torch/<pair>__<variant>.json.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 from pathlib import Path
 from typing import Any, Dict, Optional
 
 from ..configs import get_config
-from .dryrun import MESH_DEVICE, fake_group, trace_one
-from .mesh import make_production_mesh
+from .dryrun import MESH_DEVICE, fake_group, production_mesh, trace_one
 from .roofline import analyze_record
 
 RESULTS_DIR = Path(__file__).resolve().parents[3] / "results" / "perf_torch"
 
 
+@functools.lru_cache(maxsize=None)
 def make_expert_mesh(device_type: str = MESH_DEVICE):
     """256 GPUs as (data 32, expert 4, tp 2): expert x tp fills one 8-GPU
-    NVLink node, experts whole on groups of two GPUs."""
+    NVLink node, experts whole on groups of two GPUs; one a process, as
+    ``dryrun.production_mesh``."""
     from torch.distributed.device_mesh import init_device_mesh
     return init_device_mesh(device_type, (32, 4, 2),
                             mesh_dim_names=("data", "expert", "tp"))
@@ -45,9 +47,7 @@ def measure_variant(arch: str, shape: str, *, mesh=None,
     cfg = get_config(arch)
     if cfg_transform is not None:
         cfg = cfg_transform(cfg)
-    fake_group(256)
-    mesh = mesh or make_production_mesh(multi_pod=False,
-                                        device_type=MESH_DEVICE)
+    mesh = mesh or production_mesh("single")
     rec = trace_one(arch, shape, mesh, fsdp=fsdp, cfg=cfg)
     return analyze_record(rec, cfg)
 

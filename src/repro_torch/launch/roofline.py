@@ -78,6 +78,7 @@ def analyze_record(rec: Dict[str, Any],
         "fits_hbm": rec["argument_size_in_bytes"] <= HBM_BYTES,
         "fsdp": rec["fsdp"],
         "device": rec["device"],
+        "torch_version": rec.get("torch_version"),
     }
 
 
@@ -92,6 +93,18 @@ def analyze(arch: str, shape: str, use_cache: bool = True
     result = analyze_record(rec, get_config(arch))
     out_path.write_text(json.dumps(result, indent=1))
     return result
+
+
+def one_version(rows) -> str:
+    """The torch version that made every row, or a ``ValueError`` naming
+    the versions: DTensor's rules differ between versions, and a table
+    compares its rows."""
+    versions = sorted({str(r.get("torch_version")) for r in rows})
+    if len(versions) > 1:
+        raise ValueError(f"records of torch {' and '.join(versions)} in one "
+                         f"table: re-run the dry-run on one version "
+                         f"(--force)")
+    return versions[0] if versions else ""
 
 
 def main(argv=None) -> None:
@@ -109,6 +122,7 @@ def main(argv=None) -> None:
                 continue
             r = analyze(arch, shape, use_cache=not args.force)
             rows.append(r)
+            one_version(rows)
             print(f"{arch:24s} {shape:12s} C={r['compute_s']*1e3:10.3f}ms "
                   f"M={r['memory_s']*1e3:10.3f}ms "
                   f"X={r['collective_s']*1e3:10.3f}ms "

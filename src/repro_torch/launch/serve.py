@@ -1,32 +1,46 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch <id> ...``
 
-Port of ``src/repro/launch/serve.py`` for the data plane that exists so
-far: one served model under continuous batching.  ``serve`` calibrates a
+Port of ``src/repro/launch/serve.py``.  The command line runs a
+single-tenant Archipelago serving session through the experiment API with
+the ``torch`` execution backend: calibrates the model (the kernel build,
+then weights, cache, a warm-up and timed runs: the sandbox set-up cost),
+pre-warms, then drives Poisson traffic through LBS -> SGS -> workers and
+reports the ``ExperimentResult`` (latency percentiles, deadline adherence,
+cold starts), line for line as the reference does.  ``--backend stub``
+replays the same pipeline with scripted times.  ``--device`` takes the
+place of the reference's ``--kernels``: the device picks the
+implementation (``kernels/ops.py``), and without it the models run on the
+card.  ``main`` is ``parse_args`` -> ``build_experiment`` -> ``simulate``
+-> ``report``, so that a caller can build the same run from a config of
+its own (``chip_smoke.py`` phase 13 at published width).
+
+``serve`` is the data plane alone: one served model under continuous
+batching with no LBS/SGS in front.  It calibrates a
 ``ContinuousTorchExecutor`` (kernel build, weights, every bucket timed),
 then drives seeded Poisson arrivals through ``SimEnv`` +
 ``ContinuousBatcher``.  The measured wall seconds of every join and step
 advance the simulated clock, as in the JAX package's batched backend, so
-latencies are device time as the requests would have seen it.  No LBS/SGS
-stands in front: serving under Archipelago's scheduler goes through
-``sim.simulate`` with ``backend="torch-batched"`` (README).
+latencies are device time as the requests would have seen it.
 """
 from __future__ import annotations
 
 import argparse
-import json
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..configs import ARCH_IDS, get_config
+from ..core import ClusterConfig
 from ..core.batching import ContinuousBatcher
 from ..core.types import DagSpec, FunctionSpec, Invocation, Request
 from ..device import DeviceLike, device_name, resolve_device
 from ..kernels import ops as kernel_ops
 from ..models.config import ModelConfig
+from ..serving import ServingApp
 from ..serving.executor import ContinuousTorchExecutor, ServedModel
+from ..sim import Experiment, ExperimentResult, simulate
 from ..sim.engine import SimEnv
 
 FN = "generate"
@@ -150,25 +164,125 @@ def serve(cfg: ModelConfig, *, n_requests: int, rps: Optional[float],
     return out
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser()
+TORCH_BACKENDS = ("torch", "torch-batched")
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    """The reference launcher's flags, with ``--device`` in place of
+    ``--kernels`` and the port's backends."""
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", default="minicpm-2b", choices=ARCH_IDS)
-    ap.add_argument("--rps", type=float, default=None,
-                    help="Poisson arrival rate (requests per simulated "
-                         "second); default: derived from calibration")
-    ap.add_argument("--requests", type=int, default=60)
+    ap.add_argument("--rps", type=float, default=10.0)
+    ap.add_argument("--requests", type=int, default=60,
+                    help="expected request count (duration = requests/rps)")
     ap.add_argument("--prompt", type=int, default=32)
     ap.add_argument("--gen", type=int, default=4)
-    ap.add_argument("--max-batch", type=int, default=8)
+    ap.add_argument("--slack", type=float, default=0.5)
+    ap.add_argument("--n-sgs", type=int, default=2)
+    ap.add_argument("--backend", default="torch",
+                    choices=[*TORCH_BACKENDS, "stub", "stub-batched",
+                             "modeled"])
+    ap.add_argument("--batch-window", type=float, default=0.005,
+                    help="batched backends: coalescing window (sim seconds)")
+    ap.add_argument("--max-batch", type=int, default=8,
+                    help="batched backends: flush when this many invocations "
+                         "of one model have gathered")
     ap.add_argument("--device", default=None,
-                    help="torch device (default: cuda)")
-    args = ap.parse_args()
-    rep = serve(get_config(args.arch, reduced=True),
-                n_requests=args.requests, rps=args.rps,
-                prompt_len=args.prompt, gen_len=args.gen,
-                max_batch=args.max_batch, device=args.device)
-    rep.pop("tokens")
-    print(json.dumps(rep, indent=1, default=str))
+                    help="torch backends: where the models run (default: "
+                         "cuda, which raises without CUDA; cpu runs the "
+                         "kernels' plain versions)")
+    ap.add_argument("--batching", default="windowed",
+                    choices=["windowed", "continuous"],
+                    help="batched backends: request-window coalescing vs "
+                         "step-granular continuous batching")
+    ap.add_argument("--stack", default="archipelago")
+    ap.add_argument("--warmup", type=float, default=None,
+                    help="steady-state window start (exclude the pre-warm "
+                         "transient from the reported stats); default: half "
+                         "the duration for the torch backends (real runs "
+                         "take their measured time and arrivals start at "
+                         "t=0), else 0")
+    return ap.parse_args(argv)
+
+
+def build_experiment(args: argparse.Namespace, cfg: ModelConfig
+                     ) -> Experiment:
+    """One tenant serving ``cfg`` under ``args.stack`` on ``args.backend``,
+    as the reference launcher builds it."""
+    duration = args.requests / args.rps
+    warmup = args.warmup
+    real = args.backend in TORCH_BACKENDS
+    if warmup is None:
+        warmup = duration / 2.0 if real else 0.0
+    backend_kwargs: Dict[str, Any] = {}
+    if args.backend.endswith("-batched"):
+        backend_kwargs = dict(batch_window=args.batch_window,
+                              max_batch=args.max_batch,
+                              batching=args.batching)
+    if real:
+        backend_kwargs["device"] = args.device
+    app = ServingApp(
+        dag_id=args.arch,
+        models={f"{args.arch}/generate": ServedModel(
+            cfg, prompt_len=args.prompt, gen_len=args.gen)},
+        slack=args.slack)
+    return Experiment(
+        stack=args.stack,
+        backend=args.backend,
+        backend_kwargs=backend_kwargs,
+        workload_factory="serving_apps",
+        workload_kwargs=dict(apps=[app], duration=duration,
+                             rps=args.rps, prewarm_per_fn=4),
+        cluster=ClusterConfig(n_sgs=args.n_sgs, workers_per_sgs=2,
+                              cores_per_worker=2),
+        warmup=warmup, drain=10.0)
+
+
+def report(r: ExperimentResult) -> None:
+    """The reference launcher's lines: each function's measured spec, the
+    latency percentiles, deadlines met and cold starts, the data plane, and
+    the batch or continuous counters."""
+    backend = r.sim.backend
+    for name, spec in (getattr(backend, "fn_specs", None) or {}).items():
+        print(f"  {name}: exec={spec.exec_time*1e3:.1f}ms "
+              f"setup={spec.setup_time:.1f}s "
+              f"SNE={spec.setup_time/spec.exec_time:.0f}x")
+    lat = r.latency_percentiles
+    print(f"  {r.name}: n={r.n_requests} done={r.n_completed} "
+          f"p50={(lat['p50'] or 0)*1e3:.1f}ms "
+          f"p99={(lat['p99'] or 0)*1e3:.1f}ms "
+          f"deadlines_met={(r.deadline_met_frac or 0)*100:.2f}% "
+          f"cold_starts={r.cold_start_count}")
+    dp = "".join(f" {k}={v}" for k, v in sorted(r.data_plane.items()))
+    print(f"  executions: {backend.counters().get('n_executions', 0)} "
+          f"({r.backend} backend{dp})")
+    bc = r.backend_counters
+    if bc.get("n_batches"):
+        print(f"  batches: {bc['n_batches']} "
+              f"(mean occupancy "
+              f"{bc['n_batched_invocations'] / bc['n_batches']:.2f}, "
+              f"max {bc['max_batch_occupancy']}, "
+              f"padding efficiency "
+              f"{bc['n_batched_invocations'] / bc['n_batch_slots']:.2f})")
+    if bc.get("n_decode_ticks"):
+        print(f"  continuous: {bc['n_prefill_batches']} prefill batches, "
+              f"{bc['n_decode_ticks']} decode ticks "
+              f"(mean step occupancy "
+              f"{bc['n_step_slots'] / bc['n_decode_ticks']:.2f}, "
+              f"max {bc['max_batch_occupancy']})")
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    args = parse_args(argv)
+    exp = build_experiment(args, get_config(args.arch, reduced=True))
+    if args.backend in TORCH_BACKENDS:
+        dev = resolve_device(args.device)
+        what = ("the kernel build, then timed runs of each batch bucket"
+                if args.backend == "torch-batched"
+                else "the kernel build, then timed runs")
+        print(f"[serve] calibrating {args.arch} on {device_name(dev)} "
+              f"({what})...")
+    report(simulate(exp))
 
 
 if __name__ == "__main__":

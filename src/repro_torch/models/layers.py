@@ -16,8 +16,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops as kernel_ops
-from .spmd import (evenly, per_head, per_row, replicated, rows_and_heads,
-                   settled, shard_as, whole)
+from .spmd import (evenly, is_dtensor, per_head, per_row, product,
+                   products, rows_and_heads, settled, sharded_moe, whole)
 
 Params = Dict[str, torch.Tensor]
 f32 = torch.float32
@@ -40,14 +40,15 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
-    g = F.silu(x @ w_gate)
-    return settled((g * (x @ w_up)) @ w_down)
+    g, u = products(x, w_gate, w_up)
+    return settled(product(F.silu(g) * u, w_down))
 
 
 def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor,
              w_down: torch.Tensor) -> torch.Tensor:
     # tanh approximation: jax.nn.gelu's default
-    return settled(F.gelu(x @ w_up, approximate="tanh") @ w_down)
+    return settled(product(F.gelu(product(x, w_up), approximate="tanh"),
+                           w_down))
 
 
 # ---------------------------------------------------------------------------
@@ -110,18 +111,21 @@ def attention_block(x: torch.Tensor, p: Params, *, n_heads: int,
     ``kernels.ops.attention`` with the structural causal/window
     description, as the JAX package's kernel path passes it."""
     B, S, _ = x.shape
-    q = evenly(x @ p["wq"], n_heads).reshape(B, S, n_heads, hd)
     if kv_override is None:
-        k = evenly(x @ p["wk"], n_kv_heads).reshape(B, S, n_kv_heads, hd)
-        v = evenly(x @ p["wv"], n_kv_heads).reshape(B, S, n_kv_heads, hd)
+        q, k, v = products(x, p["wq"], p["wk"], p["wv"])
+        k = evenly(k, n_kv_heads).reshape(B, S, n_kv_heads, hd)
+        v = evenly(v, n_kv_heads).reshape(B, S, n_kv_heads, hd)
         k = apply_rope(k, positions, rope_theta)
     else:
+        q = product(x, p["wq"])
         k, v = kv_override
+    q = evenly(q, n_heads).reshape(B, S, n_heads, hd)
     q = apply_rope(q, positions, rope_theta)
     out = rows_and_heads(kernel_ops.attention, (q, k, v), ((0, 2),) * 3,
                          ((0, 2),), (q.shape,), (k.shape[2],),
                          causal=causal, window=window)
-    out = evenly(out, n_heads, dim=2).reshape(B, S, n_heads * hd) @ p["wo"]
+    out = product(evenly(out, n_heads, dim=2).reshape(B, S, n_heads * hd),
+                  p["wo"])
     return settled(out), k, v
 
 
@@ -160,6 +164,27 @@ def _route(eidx: torch.Tensor, T: int, E: int, C: int
     return dest, slot_src, torch.argsort(sort_idx)
 
 
+def _router(xt: torch.Tensor, w_router: torch.Tensor, k: int
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(T,d) tokens -> (probs (T,E), renormalised top-k gates, expert ids)."""
+    logits = (xt @ w_router).to(f32)                           # (T,E)
+    probs = torch.softmax(logits, dim=-1)
+    gates, eidx = top_k(probs, k)                              # (T,k)
+    return probs, gates / gates.sum(-1, keepdim=True).clamp_min(1e-9), eidx
+
+
+def _experts(h: torch.Tensor, w_gate: Optional[torch.Tensor],
+             w_up: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
+    """The expert FFNs as batched einsums over the expert axis: (E,C,d) ->
+    (E,C,d); swiglu, or gelu where there is no gate."""
+    if w_gate is not None:
+        g = F.silu(torch.einsum("ecd,edf->ecf", h, w_gate))
+        u = torch.einsum("ecd,edf->ecf", h, w_up)
+        return torch.einsum("ecf,efd->ecd", g * u, w_down)
+    hmid = F.gelu(torch.einsum("ecd,edf->ecf", h, w_up), approximate="tanh")
+    return torch.einsum("ecf,efd->ecd", hmid, w_down)
+
+
 def moe_block(x: torch.Tensor, p: Params, *, n_experts: int, k: int,
               capacity_factor: float, mlp: str = "swiglu",
               ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -173,38 +198,30 @@ def moe_block(x: torch.Tensor, p: Params, *, n_experts: int, k: int,
     einsums over the expert axis, and one gather through the composed
     permutation brings each token's k outputs back, weighted by its
     renormalised gates.  A dropped token's expert output is zero.  The
-    auxiliary loss is the Switch load-balance term ``E * sum(me * ce)``."""
+    auxiliary loss is the Switch load-balance term ``E * sum(me * ce)``.
+    On a mesh the same steps run on each rank's tokens and experts, with
+    the dispatch and combine as all-to-all exchanges
+    (``spmd.sharded_moe``)."""
     B, S, d = x.shape
     T = B * S
-    xt = x.reshape(T, d)
-    logits = (xt @ p["router"]).to(f32)                        # (T,E)
-    probs = torch.softmax(logits, dim=-1)
-    gates, eidx = top_k(probs, k)                              # (T,k)
-    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
-
     E = n_experts
     C = max(1, int(math.ceil(k * T / E * capacity_factor)))
-    # the routing's index bookkeeping runs on whole (T*k,) id vectors on
-    # every rank of a mesh (searchsorted has no sharding strategy)
-    dest, slot_src, inv = replicated(
-        lambda e: _route(e, T, E, C), eidx)
+    ws = (p["w_gate"] if mlp == "swiglu" else None, p["w_up"], p["w_down"])
+    if is_dtensor(x):
+        return sharded_moe(
+            x, dict(p, w_gate=ws[0]), E=E, k=k, C=C,
+            router=lambda xt, w: _router(xt, w, k),
+            route=_route, experts=_experts)
+    xt = x.reshape(T, d)
+    probs, gates, eidx = _router(xt, p["router"], k)
+    dest, slot_src, inv = _route(eidx, T, E, C)
 
-    # dispatch: one row gather through the slot -> source-token index; on a
-    # mesh each rank then runs its share of the capacity slots
+    # dispatch: one row gather through the slot -> source-token index
     xt_pad = torch.cat([xt, xt.new_zeros((1, d))])
-    h = shard_as(xt_pad[slot_src[:E * C]].reshape(E, C, d), 1, x, 0)
-    if mlp == "swiglu":
-        g = F.silu(torch.einsum("ecd,edf->ecf", h, p["w_gate"]))
-        u = torch.einsum("ecd,edf->ecf", h, p["w_up"])
-        out_e = torch.einsum("ecf,efd->ecd", g * u, p["w_down"])
-    else:
-        hmid = F.gelu(torch.einsum("ecd,edf->ecf", h, p["w_up"]),
-                      approximate="tanh")
-        out_e = torch.einsum("ecf,efd->ecd", hmid, p["w_down"])
+    out_e = _experts(xt_pad[slot_src[:E * C]].reshape(E, C, d), *ws)
 
     # combine: the two permutations (sorted -> slot, unsort) composed into
-    # one row gather, which on a mesh reads every rank's slots
-    out_e = whole(whole(out_e, 1), 0)
+    # one row gather
     out_flat = torch.cat([out_e.reshape(E * C, d), out_e.new_zeros((1, d))])
     out_tk = out_flat[dest[inv]].reshape(T, k, d)
     y = (out_tk * gates.to(x.dtype)[..., None]).sum(dim=1)
@@ -320,8 +337,8 @@ def mamba2_block(x: torch.Tensor, p: Params, *, n_heads: int, head_dim: int,
     B, S, _ = x.shape
     H, P, N = n_heads, head_dim, d_state
     di = H * P
-    z, xBC, dt = torch.split(whole(x @ p["in_proj"]), [di, di + 2 * N, H],
-                             dim=-1)
+    z, xBC, dt = torch.split(whole(product(x, p["in_proj"])),
+                             [di, di + 2 * N, H], dim=-1)
     # causal depthwise conv over the sequence, as the JAX package writes
     # it: products and their sum in the compute dtype, then the float32 bias
     if cache is not None:
@@ -356,5 +373,5 @@ def mamba2_block(x: torch.Tensor, p: Params, *, n_heads: int, head_dim: int,
     y = y.reshape(B, S, di)
     # gated RMSNorm (mamba2 style), at rms_norm's default eps as in JAX
     y = rms_norm(y * F.silu(z), p["norm_w"])
-    return settled(y @ p["out_proj"]), {"conv": new_conv,
-                                        "state": new_state}
+    return settled(product(y, p["out_proj"])), {"conv": new_conv,
+                                                 "state": new_state}

@@ -73,8 +73,8 @@ from ..kernels import ops as kernel_ops
 from .config import LayerGroup, ModelConfig
 from .layers import (apply_rope, attention_block, gelu_mlp, gqa_attention,
                      mamba2_block, moe_block, rms_norm, swiglu)
-from .spmd import (embed, evenly, gather_data, pick, put_slots, ring_fill,
-                   rows_and_heads, settled)
+from .spmd import (embed, evenly, gather_data, pick, product, products,
+                   put_slots, ring_fill, rows_and_heads, settled)
 
 Params = Dict[str, Any]
 f32 = torch.float32
@@ -249,10 +249,9 @@ def _enc_kv(cfg: ModelConfig, lp: Params, enc_out: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """A decoder layer's cross-attention K/V over the encoder output."""
     B, Se, _ = enc_out.shape
-    k = evenly(enc_out @ lp["xwk"], cfg.n_kv_heads).reshape(
-        B, Se, cfg.n_kv_heads, cfg.hd)
-    v = evenly(enc_out @ lp["xwv"], cfg.n_kv_heads).reshape(
-        B, Se, cfg.n_kv_heads, cfg.hd)
+    k, v = products(enc_out, lp["xwk"], lp["xwv"])
+    k = evenly(k, cfg.n_kv_heads).reshape(B, Se, cfg.n_kv_heads, cfg.hd)
+    v = evenly(v, cfg.n_kv_heads).reshape(B, Se, cfg.n_kv_heads, cfg.hd)
     return k, v
 
 
@@ -357,8 +356,8 @@ def _unembed(cfg: ModelConfig, params: Params,
     the padded columns too, as in the JAX package)."""
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
-        return h @ gather_data(params["embed"]).T.to(h.dtype)
-    return h @ gather_data(params["lm_head"]).to(h.dtype)
+        return product(h, gather_data(params["embed"]).T.to(h.dtype))
+    return product(h, gather_data(params["lm_head"]).to(h.dtype))
 
 
 def _encode(cfg: ModelConfig, params: Params,
@@ -585,12 +584,12 @@ def _attn_group_decode(cfg: ModelConfig, g: LayerGroup, gp: Params,
     for i, lp in enumerate(_layer_params(gp)):
         lk, lv = ce["k"][i], ce["v"][i]
         hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
-        q = evenly(hn @ lp["wq"], cfg.n_heads).reshape(
-            B, 1, cfg.n_heads, cfg.hd)
-        k1 = evenly(hn @ lp["wk"], cfg.n_kv_heads).reshape(
-            B, 1, cfg.n_kv_heads, cfg.hd)
-        v1 = evenly(hn @ lp["wv"], cfg.n_kv_heads).reshape(
-            B, 1, cfg.n_kv_heads, cfg.hd)
+        q, k1, v1 = products(hn, lp["wq"], lp["wk"], lp["wv"])
+        q = evenly(q, cfg.n_heads).reshape(B, 1, cfg.n_heads, cfg.hd)
+        k1 = evenly(k1, cfg.n_kv_heads).reshape(B, 1, cfg.n_kv_heads,
+                                                cfg.hd)
+        v1 = evenly(v1, cfg.n_kv_heads).reshape(B, 1, cfg.n_kv_heads,
+                                                cfg.hd)
         q = apply_rope(q, positions, cfg.rope_theta)
         k1 = apply_rope(k1, positions, cfg.rope_theta)
         # write the new K/V at (row, t mod W) before attending, in place
@@ -607,20 +606,20 @@ def _attn_group_decode(cfg: ModelConfig, g: LayerGroup, gp: Params,
                                ((0, 1), (0, 2), (0, 2), (0, None)),
                                ((0, 1),), (q0.shape,),
                                (cfg.n_kv_heads,))[:, None]
-        h = h + settled(evenly(a, cfg.n_heads, dim=2).reshape(
-            B, 1, cfg.n_heads * cfg.hd) @ lp["wo"])
+        h = h + settled(product(evenly(a, cfg.n_heads, dim=2).reshape(
+            B, 1, cfg.n_heads * cfg.hd), lp["wo"]))
         if g.cross_attn:
             # the flash kernel with one non-causal query, q without RoPE,
             # as in the JAX package's decode
             hx = rms_norm(h, lp["ln_x"], cfg.norm_eps)
-            qx = evenly(hx @ lp["xwq"], cfg.n_heads).reshape(
+            qx = evenly(product(hx, lp["xwq"]), cfg.n_heads).reshape(
                 B, 1, cfg.n_heads, cfg.hd)
             ax = rows_and_heads(kernel_ops.attention,
                                 (qx, ce["xk"][i], ce["xv"][i]),
                                 ((0, 2),) * 3, ((0, 2),), (qx.shape,),
                                 (cfg.n_kv_heads,), causal=False, window=0)
-            h = h + settled(evenly(ax, cfg.n_heads, dim=2).reshape(
-                B, 1, cfg.n_heads * cfg.hd) @ lp["xwo"])
+            h = h + settled(product(evenly(ax, cfg.n_heads, dim=2).reshape(
+                B, 1, cfg.n_heads * cfg.hd), lp["xwo"]))
         f, _ = _ffn(cfg, g, lp, rms_norm(h, lp["ln2"], cfg.norm_eps))
         h = h + f
     return h

@@ -14,7 +14,7 @@ Includes the WSD (warmup-stable-decay) schedule MiniCPM introduced
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, NamedTuple, Tuple, Union
+from typing import Any, Callable, NamedTuple, Sequence, Tuple, Union
 
 import torch
 
@@ -22,6 +22,37 @@ from .tree import leaves, map_with_path
 
 f32 = torch.float32
 Step = Union[int, torch.Tensor]
+
+
+def sum_of_squares(ts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``sum(torch.sum(torch.square(t.float())) for t in ts)`` (the
+    squared global norm of gradient clipping).  On ``DTensor``s each rank
+    sums its own shards, the tensors split over the same mesh dims
+    together, and one all-reduce over those dims per such set gives the
+    total: left to DTensor, the number of reductions differs between torch
+    versions (the dry-run's counts, ``launch/dryrun.py``)."""
+    meshes = [t.device_mesh for t in ts if hasattr(t, "device_mesh")]
+    if not meshes:
+        return sum(torch.sum(torch.square(t.to(f32))) for t in ts)
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh, whole = meshes[0], [Replicate()] * meshes[0].ndim
+    groups = {}
+    for t in ts:
+        if any(p.is_partial() for p in t.placements):
+            t = t.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                      for p in t.placements])
+        split = tuple(i for i, p in enumerate(t.placements) if p.is_shard())
+        local = torch.sum(torch.square(t.to_local().to(f32)))
+        groups[split] = local if split not in groups \
+            else groups[split] + local
+    total = None
+    for split, local in groups.items():
+        part = DTensor.from_local(
+            local, mesh, [Partial() if i in split else Replicate()
+                          for i in range(mesh.ndim)], run_check=False)
+        part = part.redistribute(mesh, whole)
+        total = part if total is None else total + part
+    return total
 
 
 class AdamWState(NamedTuple):
@@ -58,8 +89,7 @@ def adamw_update(grads: Any, state: AdamWState, params: Any, *,
         raise ValueError(f"adamw_update: {len(flat_g)} gradients, "
                          f"{len(flat_p)} parameters, {len(flat_m)} / "
                          f"{len(flat_v)} moments")
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(f32)))
-                           for g in flat_g))
+    gnorm = torch.sqrt(sum_of_squares(flat_g))
     scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
     step = state.step + 1
     t = step.to(f32)

@@ -12,6 +12,7 @@ import torch
 
 from ..models import lm_loss
 from ..models.config import ModelConfig
+from ..models.spmd import settled
 from .optim import AdamWState, adamw_update, make_schedule
 from .tree import leaves_with_paths, unflatten_like
 
@@ -43,6 +44,9 @@ def make_train_step(cfg: ModelConfig, total_steps: int = 10_000,
             raise RuntimeError(f"{cfg.name}: no gradient reached "
                                f"{len(missing)} parameter leaves: "
                                f"{missing[:8]}")
+        # on a mesh, a whole leaf's gradient may still be a pending sum
+        # over the rows (spmd.products): reduce it once, here
+        grads = [settled(g) for g in grads]
         lr = sched(opt_state.step + 1)
         params, opt_state = adamw_update(unflatten_like(params, list(grads)),
                                          opt_state, params, lr=lr)

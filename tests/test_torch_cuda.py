@@ -376,6 +376,23 @@ def test_simulate_torch_batched_on_the_card(cuda, arch):
     assert got == want
 
 
+def test_the_launcher_serves_on_the_card(cuda, capsys):
+    """``python -m repro_torch.launch.serve`` without ``--device``: the
+    reduced minicpm-2b on continuous ``torch-batched`` on the card; every
+    request completed, and the kernels launched."""
+    import re
+    from repro_torch.launch.serve import main
+    ops.reset_launch_counts()
+    main(["--backend", "torch-batched", "--batching", "continuous",
+          "--requests", "8"])
+    out = capsys.readouterr().out
+    n, done = re.search(r" n=(\d+) done=(\d+) ", out).groups()
+    assert int(n) > 0 and n == done
+    assert "device=cuda" in out
+    got = ops.launch_counts()
+    assert got["attention"] > 0 and got["decode_attention"] > 0
+
+
 def _on_both(cfg, run):
     """``run(cfg, params, device)`` on the CPU and on the card with the
     same weights (made on the CPU); returns both results on the CPU."""

@@ -8,6 +8,7 @@ process (4 fake ranks on a 2 x 2 mesh), spawned once for the file.
 """
 import importlib
 import json
+import math
 import os
 import pathlib
 import subprocess
@@ -22,7 +23,8 @@ from repro_torch.configs import (ARCH_IDS, INPUT_SHAPES,  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.launch.cost import (DeviceCostMode,  # noqa: E402
                                      collective_wire_bytes)
-from repro_torch.launch.roofline import model_flops, terms  # noqa: E402
+from repro_torch.launch.roofline import (model_flops,  # noqa: E402
+                                         one_version, terms)
 
 # the wrappers' modules (the package exports the functions under the same
 # names)
@@ -46,7 +48,7 @@ from torch.distributed.tensor import distribute_tensor
 from torch.distributed.tensor.experimental import implicit_replication
 from repro_torch.configs import get_config
 from repro_torch.launch.cost import DeviceCostMode
-from repro_torch.launch.dryrun import fake_group, gpu_alltoall, trace_one
+from repro_torch.launch.dryrun import fake_group, trace_one
 from repro_torch.models import forward, init_params
 from repro_torch.models.sharding import (distribute, input_pspecs,
                                          param_pspecs, placements)
@@ -61,7 +63,7 @@ tok = distribute_tensor(torch.empty((B, S), dtype=torch.int32,
                                     device="meta"),
                         mesh, placements(mesh, sp["tokens"]))
 mode = DeviceCostMode(mesh)
-with torch.no_grad(), gpu_alltoall(), implicit_replication(), mode:
+with torch.no_grad(), implicit_replication(), mode:
     logits, _ = forward(cfg, params, tok)
     logits.redistribute(mesh, placements(mesh, sp["frontend"]))
 out = {"forward": {"flops_by_op": dict(mode.flops_by_op),
@@ -70,8 +72,19 @@ for arch, shape in (("minicpm-2b", "train_4k"), ("mixtral-8x22b", "train_4k"),
                     ("mamba2-370m", "prefill_32k"),
                     ("whisper-tiny", "prefill_32k"),
                     ("minicpm-2b", "decode_32k"), ("gemma3-1b", "long_500k")):
-    out[f"{arch}:{shape}"] = trace_one(arch, shape, mesh,
+    mode = DeviceCostMode(mesh)
+    out[f"{arch}:{shape}"] = trace_one(arch, shape, mesh, mode=mode,
                                        cfg=get_config(arch, reduced=True))
+    out[f"{arch}:{shape}"]["coll_log"] = mode.coll_log
+# a second mesh of the same shape: DTensor's caches hand back the first
+# mesh's process groups, which the cost mode must refuse, not misprice
+mesh2 = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+try:
+    trace_one("minicpm-2b", "decode_32k", mesh2,
+              cfg=get_config("minicpm-2b", reduced=True))
+    out["second_mesh"] = None
+except RuntimeError as e:
+    out["second_mesh"] = str(e)
 print("RESULT " + json.dumps(out))
 """
 
@@ -182,11 +195,8 @@ def test_each_row_parallel_product_is_reduced_once_over_model(child):
     "mamba2-370m:prefill_32k", "whisper-tiny:prefill_32k",
     "minicpm-2b:decode_32k", "gemma3-1b:long_500k"])
 def test_trace_one_writes_the_reference_keys(child, combo):
-    """Every key of the reference's record; the all-to-all priced as one
-    where this torch lets the dry-run swap DTensor's CPU-mesh fallback."""
-    from repro_torch.launch.dryrun import gpu_alltoall
-    with gpu_alltoall() as swapped:
-        pass
+    """Every key of the reference's record, and the torch version that
+    made it."""
     rec = child[combo]
     arch, shape = combo.split(":")
     assert REFERENCE_KEYS <= set(rec)
@@ -197,9 +207,59 @@ def test_trace_one_writes_the_reference_keys(child, combo):
     assert rec["argument_size_in_bytes"] > 0
     assert rec["temp_size_in_bytes"] is None
     assert rec["coll_by_axis"]
-    assert rec["alltoall"] == ("all-to-all" if swapped
-                               else "all-gather and chunk (CPU mesh)")
+    assert rec["torch_version"] == torch.__version__
     assert rec["device"] == "H100 SXM (data sheet)"
+
+
+def test_the_roofline_refuses_records_of_two_torch_versions():
+    rows = [{"torch_version": "2.11.0"}, {"torch_version": "2.13.0"}]
+    with pytest.raises(ValueError, match="2.11.0 and 2.13.0"):
+        one_version(rows)
+    assert one_version(rows[:1] * 2) == "2.11.0"
+
+
+def test_the_moe_dispatch_and_combine_are_all_to_alls(child):
+    """Reduced mixtral-8x22b, train_4k on (data 2, model 2): the tokens'
+    exchange with the experts' slots is one all-to-all over the token
+    split (data) each way, in the forward, its recompute and the backward,
+    each of a rank's whole capacity-padded slot buffer; the only
+    all-gather over data is the routing's expert ids."""
+    cfg = get_config("mixtral-8x22b", reduced=True)
+    seq, batch, _ = INPUT_SHAPES["train_4k"]
+    T, k, E = batch * seq, cfg.experts_per_token, cfg.n_experts
+    C = math.ceil(k * T / E * cfg.capacity_factor)
+    slots = 2 * (E // 2) * -(-C // 2) * cfg.d_model    # G x E_l x Cl x d
+    log = child["mixtral-8x22b:train_4k"]["coll_log"]
+    a2a = [n for kind, axis, n in log if kind == "all-to-all"]
+    assert a2a == [slots] * (cfg.n_layers * 2 * (3 if cfg.remat else 2))
+    assert {axis for kind, axis, _ in log if kind == "all-to-all"} == \
+        {"data"}
+    gathers = [n for kind, axis, n in log
+               if kind == "all-gather" and axis == "data"]
+    assert gathers == [T // 2 * k] * (cfg.n_layers * (2 if cfg.remat
+                                                      else 1))
+
+
+def test_a_reduced_moe_train_trace_keeps_its_counts(child):
+    """Reduced mixtral-8x22b, train_4k on (data 2, model 2): the counts
+    recorded here, the same on torch 2.11 and 2.13 (every product, the MoE
+    and the global norm run on local shards with explicit collectives,
+    ``models/spmd.py``)."""
+    rec = child["mixtral-8x22b:train_4k"]
+    assert rec["flops"] == pytest.approx(14164802142208.0, rel=1e-9)
+    assert rec["bytes_accessed"] == pytest.approx(1441157065742.0, rel=1e-9)
+    assert rec["coll_by_axis"] == pytest.approx(
+        {"model": 4842061316.0, "data": 4064156292.0}, rel=1e-9)
+
+
+def test_the_cost_mode_refuses_the_groups_of_another_mesh(child):
+    """A trace on a second mesh of the same shape in one process meets the
+    first mesh's process groups (DTensor caches propagated placements with
+    their mesh): the cost mode raises rather than price them as the whole
+    world, and the dry-run keeps one mesh of each kind a process
+    (``dryrun.production_mesh``)."""
+    assert "which is no dim of the mesh priced" in (child["second_mesh"]
+                                                    or "")
 
 
 # -- the kernel wrappers on meta tensors (the dry-run's path) -----------------

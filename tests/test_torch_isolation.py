@@ -31,6 +31,10 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "import repro_torch.core, repro_torch.sim, repro_torch.serving\n"
             "from repro_torch.sim import get_workload_factory\n"
             "get_workload_factory('serving_apps')\n"
+            "from repro_torch.launch.serve import main\n"
+            "main(['--backend', 'torch-batched', '--batching', "
+            "'continuous', '--device', 'cpu', '--requests', '4', "
+            "'--rps', '4', '--prompt', '8', '--gen', '1'])\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n"

@@ -7,10 +7,14 @@ dry-run counts (``launch/dryrun.py``) to the one that runs.
 
 Three reduced models: minicpm-2b (dense), mamba2-370m (the SSD scan per
 rank's rows and heads) and mixtral-8x22b (MoE, expert-parallel: 4 experts
-over a model axis of 2, sliding-window ring caches).  For each: ``lm_loss``
+over a model axis of 2, sliding-window ring caches; and with 3 experts,
+which the model axis does not divide: each expert's hidden dim split
+over it).  For each: ``lm_loss``
 (over vocab-sharded logits), ``forward`` logits, a ``prefill`` of 80 tokens
-(past mixtral's window of 64, so the ring wraps) and one ``decode_step``.
-The four ranks are spawned once for the file.
+(past mixtral's window of 64, so the ring wraps) and one ``decode_step``;
+and the gradient of ``lm_loss`` in every parameter leaf (the backward of
+``spmd.products`` and of the MoE's all-to-all exchanges).  The four ranks
+are spawned once for the file.
 """
 import json
 import os
@@ -23,7 +27,7 @@ import pytest
 pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-ARCHS = ("minicpm-2b", "mamba2-370m", "mixtral-8x22b")
+ARCHS = ("minicpm-2b", "mamba2-370m", "mixtral-8x22b", "mixtral-8x22b-tp")
 TOL = 2e-4
 
 RANK = r"""
@@ -39,6 +43,7 @@ from repro_torch.models import (decode_step, forward, init_cache,
 from repro_torch.models.sharding import (cache_pspecs, distribute,
                                          input_pspecs, param_pspecs,
                                          placements)
+from repro_torch.train.tree import leaves
 
 rank, store_path, out_path = int(sys.argv[1]), sys.argv[2], sys.argv[3]
 dist.init_process_group("gloo", store=dist.FileStore(store_path, 4),
@@ -46,15 +51,23 @@ dist.init_process_group("gloo", store=dist.FileStore(store_path, 4),
 mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
 B, S = 4, 80
 out = {}
-for arch in ("minicpm-2b", "mamba2-370m", "mixtral-8x22b"):
-    cfg = get_config(arch, reduced=True).with_(compute_dtype="float32",
-                                               param_dtype="float32")
+for arch, over in (("minicpm-2b", {}), ("mamba2-370m", {}),
+                   ("mixtral-8x22b", {}), ("mixtral-8x22b-tp",
+                                           {"n_experts": 3})):
+    cfg = get_config(arch.removesuffix("-tp"), reduced=True).with_(
+        compute_dtype="float32", param_dtype="float32", **over)
     params = init_params(cfg, seed=0, device="cpu")
     gen = torch.Generator().manual_seed(1)
     tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
                            dtype=torch.int32)
     nxt = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen,
                         dtype=torch.int32)
+    flat = leaves(params)
+    for t in flat:
+        t.requires_grad_(True)
+    ref_grads = torch.autograd.grad(lm_loss(cfg, params, tokens), flat)
+    for t in flat:
+        t.requires_grad_(False)
     with torch.no_grad():
         ref_loss = lm_loss(cfg, params, tokens)
         ref_fwd, _ = forward(cfg, params, tokens)
@@ -77,10 +90,21 @@ for arch in ("minicpm-2b", "mamba2-370m", "mixtral-8x22b"):
         # (layers, batch, ...): the batch dim over data
         held = [t.placements[0].is_shard(1) for t in
                 [c for e in dcache["layers"] for c in e.values()]]
+    dflat = leaves(dparams)
+    for t in dflat:
+        t.requires_grad_(True)
+    with implicit_replication():
+        grads = torch.autograd.grad(
+            lm_loss(cfg, dparams, place(tokens, "tokens")), dflat)
+    # the leaf furthest from its unsharded gradient
+    worst = max(([float((g.full_tensor() - r).abs().max()),
+                  float(r.abs().max())] for g, r in zip(grads, ref_grads)),
+                key=lambda dr: dr[0] / max(1.0, dr[1]))
     out[arch] = {
         name: [float((g - r).abs().max()), float(r.abs().max())]
         for name, g, r in zip(("lm_loss", "forward", "prefill", "decode"),
                               got, (ref_loss, ref_fwd, ref_pre, ref_dec))}
+    out[arch]["grad"] = worst
     out[arch]["cache_batch_sharded"] = all(held)
 dist.barrier()
 if rank == 0:
@@ -115,7 +139,8 @@ def results(tmp_path_factory):
     return json.loads(out.read_text())
 
 
-@pytest.mark.parametrize("what", ["lm_loss", "forward", "prefill", "decode"])
+@pytest.mark.parametrize("what", ["lm_loss", "forward", "prefill", "decode",
+                                  "grad"])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_sharded_equals_unsharded(results, arch, what):
     diff, scale = results[arch][what]
