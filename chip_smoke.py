@@ -16,8 +16,14 @@ minicpm-2b with the two attention kernels, the Mamba2 decoder mamba2-370m
 with the SSD scan): checks the model at full width (two layers) on the card
 against the same weights on the CPU, serves 16 full-width, full-depth
 requests through continuous batching, asserting that every decoder layer's
-hot spot went through its kernel, and profiles one full-bucket join and
-decode step to show how much of their time the card is busy.  Phase 8
+hot spot went through its kernel and that every join and step after
+set-up was one replay of the program captured for its bucket (a CUDA
+graph, ``serving.graphs``), holds those replays against the eager bodies
+on the same state in a mixed bucket order (phase 6 (b),
+``replay_parity``), and profiles one full-bucket join and decode step, as
+the eager body and as the replay, to show how much of their time the card
+is busy.  Phases 8, 10 and 13 also assert that every join, prefill and
+decode step after set-up was a replay (``check_replays``).  Phase 8
 serves both models at once, at full width and depth, through Archipelago's
 control plane: ``simulate(stack="archipelago", backend="torch-batched")``
 with continuous batching (the LBS, the SGSs and the sandbox manager over the
@@ -270,9 +276,11 @@ def log(*a) -> None:
 
 def device_profile(call, runs: int) -> dict:
     """Run ``call`` ``runs`` times under ``torch.profiler`` and return, per
-    run, the host milliseconds (profiler on), the kernel launch calls, the
-    milliseconds the card was busy (the union of every device-side event's
-    interval), the five
+    run, the host milliseconds (profiler on), the kernel launch calls
+    (``cudaLaunchKernel*``) and the graph launch calls (``cudaGraphLaunch``,
+    one per replay of a captured program), the milliseconds the card was
+    busy (the union of every device-side event's interval, a replay's
+    kernels included), the five
     kernels that took the most device time and the eight host ops that
     took the most host time of their own."""
     from torch.autograd import DeviceType
@@ -298,7 +306,10 @@ def device_profile(call, runs: int) -> dict:
     # cudaLaunchKernel, and cudaLaunchKernelExC for a cluster launch
     launches = sum(a.count for a in host
                    if a.key.startswith("cudaLaunchKernel")) / runs
+    graph_launches = sum(a.count for a in host
+                         if a.key.startswith("cudaGraphLaunch")) / runs
     return {"host_ms": host_s * 1e3 / runs, "launch_calls": launches,
+            "graph_launches": graph_launches,
             "device_busy_ms": busy_us / 1e3 / runs,
             "top": [(n, us / 1e3 / runs) for n, us in top],
             "top_host": [(a.key, a.count // runs,
@@ -498,14 +509,200 @@ def check_serve(cfg, rep: Dict[str, Any], total: Dict[str, int],
                              f"expected {want_loop} / {want_total}")
 
 
+def graph_replays() -> int:
+    """Replays of captured programs so far, every graph of the process
+    (``serving.graphs.CudaGraph.replays``)."""
+    from repro_torch.serving import graphs
+    return graphs.CudaGraph.replays
+
+
+def check_replays(tag: str, dev, got: int, want: int) -> None:
+    """On the card every join, prefill and decode step after set-up is one
+    replay of a captured program: ``got`` replays must be ``want``; off the
+    card a program runs its body and nothing replays."""
+    expect = want if str(dev).startswith("cuda") else 0
+    if got != expect:
+        raise AssertionError(f"{tag}: {got} graph replays, expected "
+                             f"{expect}")
+
+
+def instance_runs(ex) -> Tuple[int, Dict[str, float]]:
+    """A per-invocation or windowed executor's program calls after set-up
+    (each instance's prefill and decode runs) and each instance's set-up
+    seconds, capture included."""
+    runs = sum(i.prefill_fn.runs + i.decode_fn.runs
+               for i in ex._instances.values())
+    return runs, {str(k): i.setup_seconds for k, i in ex._instances.items()}
+
+
+def peak_memory(dev) -> str:
+    import torch
+    if not str(dev).startswith("cuda"):
+        return "not measured"
+    return f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB"
+
+
+# Phase 6 (b): joins at buckets 8, 1, 4, 2, 8 (3 slots run at bucket 4, 5
+# at 8) with steps between them, one at a padded bucket
+REPLAY_SCRIPT = (("join", tuple(range(8))), ("step", tuple(range(8))),
+                 ("join", (5,)), ("step", (5,)),
+                 ("join", (1, 2, 3)), ("step", (1, 2, 3, 5)),
+                 ("join", (6, 7)), ("step", (6, 7)),
+                 ("join", (0, 4, 2, 3, 1)), ("step", tuple(range(8))),
+                 ("step", (0, 2, 4)))
+
+
+def replay_parity(cfg, dev, *, prompt_len: int, gen_len: int,
+                  max_batch: int = 8, seed: int = 3) -> Dict[str, Any]:
+    """Phase 6 (b): the captured programs against the eager bodies.  Two
+    continuous executors of ``cfg`` on ``dev`` with the same weights: one
+    serves ``REPLAY_SCRIPT`` through ``_admit_tokens`` / ``step`` (on the
+    card, replays of its captured programs), the other, which captures
+    nothing, runs ``_join`` / ``_step`` directly on the same prompts and
+    slots.  After each call the logits, ``pos``, and ``tok`` and every
+    slab leaf in the rows the call wrote (but a padded call's first slot,
+    which two batch rows write) must be equal bit for bit or, failing
+    that, within ``TOL`` of the eager ones (|replay - eager| <= tol + tol
+    |eager|) with the same greedy token wherever the eager top-2 gap
+    exceeds that tolerance; the eager state is then copied over, so each
+    call starts from the same state.
+    Also each executor's set-up peak and held memory on the card (held:
+    reserved after ``empty_cache``; the replaying one's includes its
+    graphs' pool)."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.serving import (ContinuousTorchExecutor, ServedModel,
+                                     graphs)
+    on_card = dev.type == "cuda"
+    served = {"gen": ServedModel(cfg, prompt_len=prompt_len,
+                                 gen_len=gen_len)}
+    ex, st, mem = {}, {}, {}
+    graph_for = graphs.graph_for
+    for kind in ("replay", "eager"):
+        if on_card:
+            # an earlier phase's executor held in a reference cycle (the
+            # control plane's objects hold their backend) goes here, before
+            # the baseline, not during the set-up measured
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = (torch.cuda.memory_allocated(dev),
+                    torch.cuda.memory_reserved(dev))
+        if kind == "eager":
+            graphs.graph_for = lambda device: None
+        try:
+            ex[kind] = ContinuousTorchExecutor(served, max_batch=max_batch,
+                                               device=dev, seed=0)
+            st[kind] = ex[kind]._ensure("gen")
+        finally:
+            graphs.graph_for = graph_for
+        if on_card:
+            torch.cuda.empty_cache()
+            mem[kind] = {
+                "setup_peak": torch.cuda.max_memory_allocated(dev) - base[0],
+                "held": torch.cuda.memory_reserved(dev) - base[1]}
+    st["eager"].params = st["replay"].params
+    dtype = str(cfg.dtype()).split(".")[1]
+    tol = TOL[dtype]
+    rng = np.random.default_rng(seed)
+    r0 = graph_replays()
+    bit_equal, worst, greedy, dup_worst = True, 0.0, [0, 0], 0.0
+    for op, slots in REPLAY_SCRIPT:
+        slots = list(slots)
+        b, ids = ContinuousTorchExecutor._pad_slots(slots)
+        idt = torch.tensor(ids, device=dev)
+        if op == "join":
+            toks = rng.integers(0, cfg.vocab_size, (len(slots), prompt_len))
+            ex["replay"]._admit_tokens("gen", toks, slots)
+            got = st["replay"].joins[b].outputs
+            padded = np.concatenate([toks, np.repeat(toks[:1],
+                                                     b - len(slots), 0)])
+            want = ex["eager"]._join(st["eager"], torch.as_tensor(
+                padded, device=dev), idt)
+        else:
+            ex["replay"].step("gen", slots)
+            got = st["replay"].steps[b].outputs
+            want = ex["eager"]._step(st["eager"], idt)
+        # a padded call writes slots[0]'s row from two batch rows, and
+        # which write lands is unspecified on the card; where the rows
+        # differ (an MoE layer's capacity can drop one copy's token), that
+        # row is not the program's to answer for
+        rows = torch.tensor(slots[1:] if b > len(slots) else slots,
+                            device=dev)
+        pairs = [(got, want), (st["replay"].pos, st["eager"].pos),
+                 (st["replay"].tok[rows], st["eager"].tok[rows])] + [
+            (se[k][:, rows], ee[k][:, rows])
+            for se, ee in zip(st["replay"].slab["layers"],
+                              st["eager"].slab["layers"]) for k in se]
+        if not all(torch.equal(a, c) for a, c in pairs):
+            bit_equal = False
+            if not torch.equal(*pairs[1]):
+                raise AssertionError(f"{cfg.name}: replayed positions differ "
+                                     f"after {op} {slots}")
+            for a, c in [pairs[0]] + pairs[3:]:
+                t = TOL.get(str(c.dtype).split(".")[1], tol)
+                d = (a.double() - c.double()).abs()
+                worst = max(worst, d.max().item())
+                if (d - t * c.double().abs()).max().item() > t:
+                    raise AssertionError(
+                        f"{cfg.name}: replay vs eager after {op} {slots}: "
+                        f"max |diff| {d.max().item():.3g} past TOL {t}")
+            top = want.float().topk(2, dim=-1).values
+            sure = (top[..., 0] - top[..., 1]) > tol + tol * top[..., 0].abs()
+            agree = got.argmax(-1) == want.argmax(-1)
+            greedy[0] += int((agree & sure).sum())
+            greedy[1] += int(sure.sum())
+            if not bool(agree[sure].all()):
+                raise AssertionError(f"{cfg.name}: replayed greedy tokens "
+                                     f"differ after {op} {slots}")
+        if b > len(slots):
+            dup = max((se[k][:, slots[0]].double()
+                       - ee[k][:, slots[0]].double()).abs().max().item()
+                      for se, ee in zip(st["replay"].slab["layers"],
+                                        st["eager"].slab["layers"])
+                      for k in se)
+            dup_worst = max(dup_worst, dup)
+        # every call starts from the eager state
+        for se, ee in zip(st["replay"].slab["layers"],
+                          st["eager"].slab["layers"]):
+            for k in se:
+                se[k].copy_(ee[k])
+        st["replay"].tok.copy_(st["eager"].tok)
+    replays = graph_replays() - r0
+    check_replays(f"phase 6 (b) {cfg.name}", dev, replays,
+                  ex["replay"].n_executions)
+    out = {"bit_equal": bit_equal, "max_abs_diff": worst,
+           "padded_first_slot_max_abs_diff": dup_worst,
+           "greedy_where_sure": greedy, "calls": len(REPLAY_SCRIPT),
+           "replays": replays, "memory": mem,
+           "setup_s": {k: s.setup_seconds for k, s in st.items()}}
+    del ex, st
+    return out
+
+
 def scheduler_phase(dev, chat_cfg, ssm_cfg, smi: str, prompt_len: int = 512,
-                    gen_len: int = 32, duration: float = 8.0,
-                    rps: float = 2.0) -> dict:
+                    gen_len: int = 64, duration: float = 8.0,
+                    rps: float = 6.0, pool_mem_mb: float = 8192.0) -> dict:
     """Phase 8: two tenants, a dense chat app and a Mamba2 completion app,
     served through ``simulate(stack="archipelago")`` with the continuous
     ``torch-batched`` backend; then mamba2-370m alone under ``torch`` and
     windowed ``torch-batched``.  Launch counts are set to 0 before each run
-    (calibration included) and read after it."""
+    (calibration included) and read after it.
+
+    The load is set so that both functions' mean decode occupancy passes 2
+    with replayed steps.  Requests overlap on the card only while they
+    hold their sandboxes: a request occupies one for its whole decode,
+    and one that finds no warm sandbox waits out a cold start and joins
+    the batch alone.  With replayed steps (3-8x shorter than eager ones)
+    the eager-era load (gen 32, 2.0 rps, 2048 MB of sandbox pool a
+    worker) gave an H100 occupancies of 1.35 (mamba2-370m) and 1.71
+    (minicpm-2b), and 5.0, 8.0 and 10.0 rps at gen 32 left mamba2-370m at
+    1.76, 1.89 and 1.74 (cold starts 9, 28, 54 and 48 at 2.0, 5.0, 8.0
+    and 10.0 rps).  Longer generations keep requests in flight longer, and a
+    larger pool keeps more sandboxes of both functions warm."""
+    import torch
     from repro_torch.core import (BatchedTorchBackend, ClusterConfig,
                                   TorchBackend)
     from repro_torch.kernels import ops as kops
@@ -519,7 +716,8 @@ def scheduler_phase(dev, chat_cfg, ssm_cfg, smi: str, prompt_len: int = 512,
             workload_kwargs=dict(apps=apps, duration=duration, rps=rps,
                                  prewarm_per_fn=1),
             cluster=ClusterConfig(n_sgs=2, workers_per_sgs=2,
-                                  cores_per_worker=4, pool_mem_mb=2048.0),
+                                  cores_per_worker=4,
+                                  pool_mem_mb=pool_mem_mb),
             warmup=0.0, drain=drain)
 
     fns = {"chat/gen": chat_cfg, "ssm/gen": ssm_cfg}
@@ -534,7 +732,10 @@ def scheduler_phase(dev, chat_cfg, ssm_cfg, smi: str, prompt_len: int = 512,
     # drain: every request completes well inside it (the run stops early
     # in wall time once only the control plane's timers are left)
     exp = experiment(backend, apps, duration, rps, drain=60.0)
+    if str(dev).startswith("cuda"):
+        torch.cuda.reset_peak_memory_stats(dev)
     kops.reset_launch_counts()
+    r0 = graph_replays()
     t0 = time.perf_counter()
     # calibration (simulate finds the backend calibrated and reuses it),
     # timed apart from the serving run
@@ -545,7 +746,9 @@ def scheduler_phase(dev, chat_cfg, ssm_cfg, smi: str, prompt_len: int = 512,
     runs = counted_runs(ex, fns)
     r = simulate(exp)
     got = kops.launch_counts()
+    replays = graph_replays() - r0
     wall = time.perf_counter() - t0
+    setup_s = {fn: ex._state[fn].setup_seconds for fn in fns}
     log(f"[scheduler] archipelago, torch-batched continuous, minicpm-2b + "
         f"mamba2-370m full width and depth, prompt {prompt_len}, gen "
         f"{gen_len}, {rps} rps each for {duration} s: {r.n_completed}/"
@@ -571,18 +774,27 @@ def scheduler_phase(dev, chat_cfg, ssm_cfg, smi: str, prompt_len: int = 512,
                                runs)
     occupancy = {fn: v["slots"] / max(1, v["ticks"]) for fn, v in runs.items()}
     log(f"[scheduler] per function {runs}; mean decode occupancy "
-        f"{occupancy}; launches {got}, expected {want}")
+        f"{occupancy}; launches {got}, expected {want}; graph replays "
+        f"{replays} ({ex.n_executions} joins and steps, calibration "
+        f"included); set-up s (capture included) {setup_s}; peak memory "
+        f"{peak_memory(dev)}; {smi}")
     if got != want:
         raise AssertionError(f"phase 8: kernel launches {got}, expected "
                              f"{want}")
+    check_replays("phase 8", dev, replays, ex.n_executions)
     if min(occupancy.values()) <= 2:
         raise AssertionError(f"phase 8: mean decode occupancy {occupancy} "
                              f"not above 2")
     out = {"result": r.detach_sim().to_dict(), "calibration_s": calib_s,
            "build_s": ex.build_seconds, "phase_s": wall, "runs": runs,
-           "occupancy": occupancy, "launches": got,
+           "occupancy": occupancy, "launches": got, "replays": replays,
+           "setup_s": setup_s,
+           "deadline_met": {cls: st.deadline_met_frac
+                            for cls, st in r.per_class.items()},
            "bucket_admit_s": {str(k): v for k, v in ex.bucket_admit_s.items()},
            "bucket_step_s": {str(k): v for k, v in ex.bucket_step_s.items()}}
+    if str(dev).startswith("cuda"):
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
     release(backend)
     del backend, ex, exp
 
@@ -594,22 +806,32 @@ def scheduler_phase(dev, chat_cfg, ssm_cfg, smi: str, prompt_len: int = 512,
         app = ServingApp("complete", {"ssm/gen": ServedModel(
             ssm_cfg, prompt_len=prompt_len, gen_len=4)}, slack=1.2)
         kops.reset_launch_counts()
+        r0 = graph_replays()
         t0 = time.perf_counter()
         r = simulate(experiment(be, [app], 2.0, 4.0, drain=30.0))
         got = kops.launch_counts()
+        replays = graph_replays() - r0
         ex = be.executor
         prefills = len(ex._instances) * (1 + be.calib_runs) + ex.n_executions
         want = {"attention": 0, "decode_attention": 0,
                 "ssd": ssm_cfg.n_layers * prefills}
+        calls, setup_s = instance_runs(ex)
         log(f"[scheduler] {tag}, mamba2-370m, gen 4: {r.n_completed}/"
             f"{r.n_requests} requests, {prefills} prefills, launches {got}, "
-            f"expected {want}; {time.perf_counter() - t0:.1f} s")
+            f"expected {want}; graph replays {replays} of {calls} program "
+            f"calls; set-up s {setup_s}; {time.perf_counter() - t0:.1f} s")
         check_served(tag, r)
         if got != want:
             raise AssertionError(f"{tag}: kernel launches {got}, expected "
                                  f"{want}")
+        # after set-up's warm-up, each prefill and its 4 steps replay
+        check_replays(tag, dev, replays, calls)
+        if calls != (prefills - len(ex._instances)) * 5:
+            raise AssertionError(f"{tag}: {calls} program calls for "
+                                 f"{prefills} prefills")
         out[tag] = {"result": r.detach_sim().to_dict(), "launches": got,
-                    "prefills": prefills}
+                    "prefills": prefills, "replays": replays,
+                    "setup_s": setup_s}
         release(be)
     return out
 
@@ -755,6 +977,7 @@ def multitenant_phase(dev, smi: str, apps, *, duration: float, rps: float,
     if on_card:
         torch.cuda.reset_peak_memory_stats(dev)
     kops.reset_launch_counts()
+    r0 = graph_replays()
     t0 = time.perf_counter()
     be.build(exp, exp.resolve_workload())      # calibration, reused below
     calib_s = time.perf_counter() - t0
@@ -773,6 +996,7 @@ def multitenant_phase(dev, smi: str, apps, *, duration: float, rps: float,
     finally:
         del ex.run_batch        # the wrapper and the executor: a cycle
     got = kops.launch_counts()
+    replays = graph_replays() - r0
     wall = time.perf_counter() - t0
     check_served("phase 10", r)
     # every function of each request's DAG once, its edges in order
@@ -810,9 +1034,27 @@ def multitenant_phase(dev, smi: str, apps, *, duration: float, rps: float,
     if got != want:
         raise AssertionError(f"phase 10: kernel launches {got}, expected "
                              f"{want}")
+    # after set-up's warm-up, every prefill and decode step is a replay:
+    # per function, calib_runs runs of each bucket's instance and the
+    # serving run's batches, each one prefill and gen_len steps
+    calls, setup_s = instance_runs(ex)
+    want_calls = sum(
+        (1 + sm.gen_len) * (runs[fn] + be.calib_runs * sum(
+            1 for f, _ in ex._instances if f == fn))
+        for fn, sm in ex.served.items())
+    log(f"[multitenant] graph replays {replays} of {calls} program calls "
+        f"(expected {want_calls}); set-up s (capture included) {setup_s}; "
+        f"{smi}")
+    check_replays("phase 10", dev, replays, calls)
+    if calls != want_calls:
+        raise AssertionError(f"phase 10: {calls} program calls, expected "
+                             f"{want_calls}")
     out = {"result": r.detach_sim().to_dict(), "calibration_s": calib_s,
            "phase_s": wall, "batches": runs, "launches": got,
-           "per_function_launches": per_fn,
+           "per_function_launches": per_fn, "replays": replays,
+           "setup_s": setup_s,
+           "deadline_met": {cls: st.deadline_met_frac
+                            for cls, st in r.per_class.items()},
            "bucket_exec_s": {f"{fn}/{b}": v
                              for (fn, b), v in ex.bucket_exec_s.items()}}
     if on_card:
@@ -1332,15 +1574,31 @@ def launcher_run(dev, smi: str, cfg, arch: str, flags, dev_args
     if args.backend != "torch" and not continuous:
         raise ValueError(f"phase 13 reckons launches of torch and "
                          f"continuous torch-batched runs, not {flags}")
+    import torch
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
     kops.reset_launch_counts()
+    r0 = graph_replays()
     # calibration (simulate finds the backend calibrated and reuses it)
     be.build(exp, exp.resolve_workload())
     calib_s = time.perf_counter() - t1
     count = counted_runs(be.executor, served) if continuous else None
     r = simulate(exp)
     got = kops.launch_counts()
+    replays = graph_replays() - r0
     want = (continuous_launches(be, served, count) if continuous
             else per_invocation_launches(be, *served.values()))
+    ex = be.executor
+    if continuous:
+        calls = ex.n_executions
+        setup_s = {fn: st.setup_seconds for fn, st in ex._state.items()}
+    else:
+        calls, setup_s = instance_runs(ex)
+        sm, = served.values()
+        if calls != (be.calib_runs + ex.n_executions) * (1 + sm.gen_len):
+            raise AssertionError(f"phase 13: {arch} made {calls} program "
+                                 f"calls")
     wall = time.perf_counter() - t1
     lat = r.latency_percentiles
     log(f"[launcher] {arch} ({cfg.n_layers} layers, d "
@@ -1353,8 +1611,11 @@ def launcher_run(dev, smi: str, cfg, arch: str, flags, dev_args
         f"device time); data plane {r.data_plane}; calibration "
         f"{calib_s:.1f} s (kernel build {be.executor.build_seconds:.1f} "
         f"s), run {r.wall_s:.1f} s; launches {got}, expected {want}; "
-        f"{smi}")
+        f"graph replays {replays} of {calls} joins, prefills and steps; "
+        f"set-up s (capture included) {setup_s}; peak memory "
+        f"{peak_memory(dev)}; {smi}")
     check_served(f"phase 13 {arch}", r)
+    check_replays(f"phase 13 {arch}", dev, replays, calls)
     if r.data_plane.get("device") != dev.type:
         raise AssertionError(f"phase 13: {arch} data plane "
                              f"{r.data_plane}")
@@ -1364,7 +1625,10 @@ def launcher_run(dev, smi: str, cfg, arch: str, flags, dev_args
     release(be)
     return {"flags": list(flags), "result": r.detach_sim().to_dict(),
             "calibration_s": calib_s, "build_s": be.executor.build_seconds,
-            "phase_s": wall, "launches": got, "runs": count}
+            "phase_s": wall, "launches": got, "runs": count,
+            "replays": replays, "setup_s": setup_s,
+            **({"max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
+               if on_card else {})}
 
 
 def main() -> int:
@@ -1749,9 +2013,11 @@ def main() -> int:
         # -- 6. serve: full-width, full-depth -----------------------------------
         cfg = get_config(model)
         kops.reset_launch_counts()
+        r0 = graph_replays()
         rep = serve(cfg, n_requests=16, rps=None, prompt_len=512,
                     gen_len=32, max_batch=8, device=dev, seed=0)
         total = kops.launch_counts()
+        rep["replays"] = graph_replays() - r0
         path_launches[model] = total
         bc = rep["batcher"]
         log(f"[serve] {model}: {rep['completed']}/{rep['n_requests']} "
@@ -1777,39 +2043,107 @@ def main() -> int:
         if rep["mean_decode_occupancy"] <= 2:
             raise AssertionError(f"{model}: mean decode occupancy not "
                                  f"above 2")
+        ex_n = rep["executor"]["n_admits"] + rep["executor"]["n_steps"]
+        log(f"[serve] {model}: {rep['replays']} graph replays for {ex_n} "
+            f"joins and steps (calibration included); set-up "
+            f"{rep['setup_s']:.2f} s with the capture of "
+            f"{2 * len(rep['bucket_admit_ms'])} programs; {smi}")
+        check_replays(f"phase 6 {model}", dev, rep["replays"], ex_n)
         report["serve"][model] = rep
+        torch.cuda.empty_cache()
+
+        # -- 6 (b). the captured programs against the eager bodies -------------
+        rp = replay_parity(cfg, dev, prompt_len=512, gen_len=32)
+        report.setdefault("replay_parity", {})[model] = rp
+        log(f"[replay] {model} full width and depth, joins at buckets 8, 1, "
+            f"4, 2, 8 and steps between ({rp['calls']} calls, "
+            f"{rp['replays']} replays): replay vs eager body "
+            + ("equal bit for bit (logits, tok, pos, slab)"
+               if rp["bit_equal"] else
+               f"max |diff| {rp['max_abs_diff']:.3g}, within TOL; greedy "
+               f"agreement where sure {rp['greedy_where_sure']}")
+            + f"; padded calls' first slot max |diff| "
+            f"{rp['padded_first_slot_max_abs_diff']:.3g}"
+            + "; set-up peak / held GiB: "
+            + ", ".join(f"{k} {m['setup_peak'] / 2**30:.2f} / "
+                        f"{m['held'] / 2**30:.2f}"
+                        for k, m in rp["memory"].items())
+            + f"; set-up s {rp['setup_s']}; {smi}")
+        torch.cuda.empty_cache()
 
         # -- 7. where the time of a full-bucket join and step goes -------------
-        # On one executor: the median wall time of five calls without the
+        # On one executor, each bucket-8 call twice: the eager body and the
+        # replay of its captured program (its staged inputs' copies
+        # included).  The median wall time of five calls without the
         # profiler (each ends in a sync), then three calls under it; the
         # idle share divides the second's device-busy time by the first.
         ex = ContinuousTorchExecutor(
             {"generate": ServedModel(cfg, prompt_len=512, gen_len=32)},
             max_batch=8, device=dev, seed=0)
+        st = ex._ensure("generate")
         slots = list(range(8))
+        toks = ex.prompt_tokens("generate", slots, 8)
+        toks_d = torch.as_tensor(toks, device=dev)
+        slots_d = torch.arange(8, device=dev)
+
+        def timed(fn):
+            def call():
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize(dev)
+                return time.perf_counter() - t0
+            return call
+
         report["profile"][model] = {}
         for what, call in (
-                ("join", lambda: ex._admit_seeded("generate", slots, slots)),
-                ("step", lambda: ex.step("generate", slots))):
+                ("join_eager", timed(lambda: ex._join(st, toks_d, slots_d))),
+                ("join", timed(lambda: st.joins[8](tokens=toks,
+                                                   slot_ids=slots))),
+                ("step_eager", timed(lambda: ex._step(st, slots_d))),
+                ("step", timed(lambda: st.steps[8](slot_ids=slots)))):
             wall_ms = sorted(call() for _ in range(5))[2] * 1e3
             prof = device_profile(call, runs=3)
+            if not prof["device_busy_ms"] and not what.endswith("eager"):
+                # the profiler saw no kernel of the replay: CUDA events
+                # around it on the stream give the card's time instead
+                ev = [torch.cuda.Event(enable_timing=True) for _ in (0, 1)]
+                ms = []
+                for _ in range(5):
+                    ev[0].record()
+                    call()
+                    ev[1].record()
+                    ev[1].synchronize()
+                    ms.append(ev[0].elapsed_time(ev[1]))
+                prof.update(device_busy_ms=sorted(ms)[2],
+                            busy_from="cuda events")
             idle = (1 - prof["device_busy_ms"] / wall_ms
                     if prof["device_busy_ms"] else None)
             prof.update(unprofiled_ms=wall_ms, idle_share=idle)
             report["profile"][model][what] = prof
             log(f"[profile] {model} bucket-8 {what}: device busy "
-                f"{prof['device_busy_ms']:.2f} ms of {wall_ms:.2f} ms "
-                f"measured without the profiler (idle share "
+                f"{prof['device_busy_ms']:.2f} ms"
+                + (" (CUDA events)" if "busy_from" in prof else "")
+                + f" of {wall_ms:.2f} ms measured without the profiler "
+                f"(idle share "
                 f"{'not measured' if idle is None else f'{idle:.2f}'}); "
                 f"{prof['host_ms']:.2f} ms with it; "
-                f"{prof['launch_calls']:.0f} kernel launch calls; top "
+                f"{prof['launch_calls']:.0f} kernel launch calls, "
+                f"{prof['graph_launches']:.0f} graph launches; top "
                 f"kernels (ms): "
-                + ", ".join(f"{n[:40]} {t:.2f}" for n, t in prof["top"]))
+                + ", ".join(f"{n[:40]} {t:.2f}" for n, t in prof["top"])
+                + f"; {smi}")
             log(f"[profile] {model} bucket-8 {what}: top host ops (calls, "
                 f"self ms): "
                 + ", ".join(f"{n[:40]} {c} {t:.2f}"
                             for n, c, t in prof["top_host"]))
-        del ex
+            replay = not what.endswith("eager")
+            if replay and (prof["graph_launches"] != 1
+                           or prof["launch_calls"] != 0):
+                raise AssertionError(
+                    f"{model} {what}: a replay made "
+                    f"{prof['graph_launches']} graph and "
+                    f"{prof['launch_calls']} kernel launch calls")
+        del ex, st
         torch.cuda.empty_cache()
 
     # -- 8. Archipelago: the control plane over the card ------------------------

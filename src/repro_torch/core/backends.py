@@ -23,7 +23,8 @@ Built-ins:
   (``BatchCoalescer`` or, with ``batching="continuous"``,
   ``ContinuousBatcher``).
 * ``torch`` — hardware-in-the-loop: builds the CUDA kernels, calibrates
-  every served model (weights + cache + a warm-up = sandbox setup cost),
+  every served model (weights + cache + a warm-up + the capture of its
+  compiled programs = sandbox setup cost),
   rewrites the workload with *measured* ``FunctionSpec``s, and executes each
   invocation as a real model call (``serving.executor.TorchModelExecutor``).
 * ``torch-batched`` — like ``torch`` but concurrently in-flight invocations
@@ -432,8 +433,8 @@ class TorchBackend(ExecutionBackend):
     Needs served models: either the workload is a serving workload
     (``serving.engine.serving_workload`` attaches ``spec.served``) or
     ``served={fn_name: ServedModel}`` is passed directly.  ``build``
-    calibrates each model (kernel build, then weights + cache + a warm-up
-    and timed runs — the measured sandbox setup/exec costs become the
+    calibrates each model (kernel build, then weights + cache + a warm-up,
+    the capture of its compiled programs and timed runs — the measured sandbox setup/exec costs become the
     ``FunctionSpec``s, so every scheduling decision operates on real
     numbers) and the execute hook runs the actual model per invocation.
     Calibration is cached per served-model set (``served_model_key``): pass

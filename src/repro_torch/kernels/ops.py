@@ -24,7 +24,7 @@ kernel for them:
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Mapping
 
 from .decode_attention import decode_attention
 from .flash_attention import flash_attention as attention
@@ -52,3 +52,10 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNEL_TABLE.values():
         fn.launches = 0
+
+
+def set_launch_counts(counts: Mapping[str, int]) -> None:
+    """Set the launches of the hot spots ``counts`` names (a captured
+    program restores them after capture and adds to them on replay)."""
+    for name, n in counts.items():
+        KERNEL_TABLE[name].launches = n

@@ -3,8 +3,9 @@
 Port of ``src/repro/launch/serve.py``.  The command line runs a
 single-tenant Archipelago serving session through the experiment API with
 the ``torch`` execution backend: calibrates the model (the kernel build,
-then weights, cache, a warm-up and timed runs: the sandbox set-up cost),
-pre-warms, then drives Poisson traffic through LBS -> SGS -> workers and
+then weights, cache, a warm-up, the capture of each bucket's programs and
+timed runs: the sandbox set-up cost), pre-warms, then drives Poisson
+traffic through LBS -> SGS -> workers and
 reports the ``ExperimentResult`` (latency percentiles, deadline adherence,
 cold starts), line for line as the reference does.  ``--backend stub``
 replays the same pipeline with scripted times.  ``--device`` takes the

@@ -227,7 +227,10 @@ def moe_block(x: torch.Tensor, p: Params, *, n_experts: int, k: int,
     y = (out_tk * gates.to(x.dtype)[..., None]).sum(dim=1)
 
     me = probs.mean(dim=0)                                     # (E,)
-    ce = F.one_hot(eidx[:, 0], E).to(f32).mean(dim=0)
+    # one_hot by comparison: F.one_hot checks its classes with a host sync
+    # off the card, which a captured body must not hold
+    ce = (eidx[:, :1] == torch.arange(E, device=eidx.device)).to(f32) \
+        .mean(dim=0)
     aux = E * torch.sum(me * ce)
     return y.reshape(B, S, d), aux
 

@@ -340,10 +340,12 @@ def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
            frontend: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Gather, cast to the compute dtype, then scale by sqrt(d) in that
     dtype: JAX rounds the weakly typed scalar to the array's dtype first.
-    A frontend model's (B, F, d) embeddings go ahead of the text."""
+    The scale is filled on the device (no copy from the host, which a
+    captured graph cannot hold).  A frontend model's (B, F, d) embeddings
+    go ahead of the text."""
     h = embed(gather_data(params["embed"]), tokens).to(cfg.dtype())
-    scale = torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype,
-                         device=h.device)
+    scale = torch.full((), math.sqrt(cfg.d_model), dtype=h.dtype,
+                       device=h.device)
     h = h * scale
     if frontend is not None and cfg.frontend and cfg.arch_type != "encdec":
         h = torch.cat([frontend.to(cfg.dtype()), h], dim=1)
@@ -532,7 +534,9 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, Any],
                 token: torch.Tensor, t: Union[int, torch.Tensor],
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """token: (B,1) int; t: the absolute position of this token, shared by
-    every row.  Returns (logits (B,1,V), cache updated in place)."""
+    every row: an int, or a 0-d int32 tensor on the token's device (which a
+    captured graph reads; an int is copied from the host).  Returns
+    (logits (B,1,V), cache updated in place)."""
     B = token.shape[0]
     tt = torch.as_tensor(t, dtype=torch.int32, device=token.device)
     return decode_step_ragged(cfg, params, cache, token, tt.expand(B))

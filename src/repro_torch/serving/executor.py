@@ -6,11 +6,13 @@ the windowed one (``BatchingTorchExecutor``) and the continuous one
 (``ContinuousTorchExecutor``).
 
 A *model instance* is the GPU-serving analogue of the paper's sandbox:
-resident weights + a KV/SSM cache on the device, warmed up by one prefill
-and one decode step.  Its measured set-up time is what a cold start costs
-the scheduler.  Where the JAX package compiles executables at set-up, the
-port runs eagerly, and its one build step, ``nvcc`` for the CUDA kernels,
-happens once per executor before any instance is set up
+resident weights + a KV/SSM cache on the device and its compiled programs.
+Its measured set-up time is what a cold start costs the scheduler.  As the
+JAX package compiles an executable per call and bucket at set-up, set-up
+here runs each program once (the warm-up) and captures it as a CUDA graph
+(``serving.graphs``), inside the set-up clock; every join, prefill and
+decode step after that is one replay.  The other build step, ``nvcc`` for
+the CUDA kernels, happens once per executor before any instance is set up
 (``build_seconds``), so that it never becomes a sandbox's modeled cold
 start.
 
@@ -28,16 +30,18 @@ executor passes them (the frontends are stubs in both packages).
 
 ``ContinuousTorchExecutor`` keeps the JAX executor's surface (``admit``,
 ``step``, ``gen_steps``, ``release_slots``, ``calibrate``, ``buckets``,
-``bucket_admit_s``, ``bucket_step_s``, ``n_executions``).  Where the JAX
-executor compiles one executable per bucket, this one runs eagerly; its
-set-up runs every bucket once, so no first launch lands on the serving
-path.
+``bucket_admit_s``, ``bucket_step_s``, ``n_executions``).  As the JAX
+executor compiles one join and one step executable per bucket, this one
+captures one join and one step program per bucket at set-up
+(``_ContinuousState.joins`` / ``steps``).  Off the card the programs run
+their bodies through the same static buffers.
 """
 from __future__ import annotations
 
 import time
+import weakref
 import zlib
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
@@ -50,6 +54,7 @@ from ..kernels import _build
 from ..models import (decode_step, decode_step_ragged, init_cache,
                       init_params, prefill)
 from ..models.config import ModelConfig
+from .graphs import Program, ProgramSet
 
 
 def batch_seed(inv_ids: Iterable[int]) -> int:
@@ -97,6 +102,15 @@ def prompt_tokens(served: ServedModel, seed: int, n: int) -> np.ndarray:
     return rng.integers(0, served.cfg.vocab_size, (n, served.prompt_len))
 
 
+def _weakly(obj: Any, fn) -> Any:
+    """``fn(obj, ...)`` through a weak reference to ``obj``: ``obj`` owns
+    the program whose body this is, and a body that owned ``obj`` back
+    would make a reference cycle, keeping a dropped executor's weights,
+    caches and graphs on the card until the cycle collector runs."""
+    ref = weakref.ref(obj)
+    return lambda *a, **kw: fn(ref(), *a, **kw)
+
+
 def frontend_stub(cfg: ModelConfig, batch: int,
                   device: torch.device) -> Optional[torch.Tensor]:
     """Zero frontend embeddings (batch, n_frontend_tokens, d_model) for a
@@ -109,11 +123,15 @@ def frontend_stub(cfg: ModelConfig, batch: int,
 
 @dataclass
 class ModelInstance:
-    """A warm sandbox: weights + cache on the device, warmed up.
+    """A warm sandbox: weights + cache on the device, and its two compiled
+    programs, ``prefill_fn`` and ``decode_fn`` (the reference's ``jax.jit``
+    prefill and decode).
 
     ``params`` may be given (shared by the buckets of one function, or
     carried over from the JAX package by ``models.params_from_numpy``); the
-    instance then skips the weight init."""
+    instance then skips the weight init.  ``programs`` may be given too
+    (the buckets of one function share its side stream and memory
+    pool)."""
 
     served: ServedModel
     device: torch.device
@@ -121,30 +139,70 @@ class ModelInstance:
     cache: Any = None
     setup_seconds: float = 0.0
     last_tokens: Optional[torch.Tensor] = None   # (batch, gen_len + 1)
+    programs: Optional[ProgramSet] = None
+    prefill_fn: Optional[Program] = None
+    decode_fn: Optional[Program] = None
 
     def setup(self, seed: int = 0) -> float:
-        """Weights (unless given), the cache, and one warm-up prefill +
-        decode step.  Returns real wall time (the sandbox setup overhead
-        that Archipelago moves off the critical path)."""
+        """Weights (unless given), the cache, the static buffers, one
+        warm-up prefill + decode step, then the capture of both.  Returns
+        real wall time (the sandbox setup overhead that Archipelago moves
+        off the critical path)."""
         t0 = time.perf_counter()
-        sm = self.served
+        sm, dev = self.served, self.device
         if self.params is None:
-            self.params = init_params(sm.cfg, seed, self.device)
+            self.params = init_params(sm.cfg, seed, dev)
         # an encoder-decoder's cross K/V hold the frames its prefill encodes
         enc_len = (sm.cfg.n_frontend_tokens if sm.cfg.arch_type == "encdec"
                    else None)
         self.cache = init_cache(sm.cfg, sm.batch, sm.prompt_len + sm.gen_len,
-                                self.device, enc_len=enc_len)
-        tokens = torch.zeros((sm.batch, sm.prompt_len), dtype=torch.long,
-                             device=self.device)
-        prefill(sm.cfg, self.params, tokens, self.cache,
-                frontend_stub(sm.cfg, sm.batch, self.device))
-        decode_step(sm.cfg, self.params, self.cache,
-                    torch.zeros((sm.batch, 1), dtype=torch.long,
-                                device=self.device), sm.prompt_len)
-        _sync(self.device)
+                                dev, enc_len=enc_len)
+        # the decode state the programs carry on the device: the last token,
+        # the position t and the tokens so far (one spare column, which the
+        # warm-up step writes when gen_len is 0)
+        self._tok = torch.zeros((sm.batch, 1), dtype=torch.long, device=dev)
+        self._t = torch.zeros((), dtype=torch.int32, device=dev)
+        self._out = torch.zeros((sm.batch, sm.gen_len + 2), dtype=torch.int32,
+                                device=dev)
+        if self.programs is None:
+            self.programs = ProgramSet(dev)
+        self.prefill_fn = self.programs.add(
+            _weakly(self, ModelInstance._prefill), {"tokens": torch.zeros(
+                (sm.batch, sm.prompt_len), dtype=torch.long, device=dev)},
+            host=("tokens",))
+        self.decode_fn = self.programs.add(
+            _weakly(self, ModelInstance._decode), {})
+        with self.programs.side_stream():
+            self.prefill_fn.warm_up()
+            self.decode_fn.warm_up()
+        self.programs.capture()
+        _sync(dev)
         self.setup_seconds = time.perf_counter() - t0
         return self.setup_seconds
+
+    # -- the two programs' bodies ----------------------------------------------
+    def _prefill(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Prefill ``tokens`` into the cache, the first greedy token into
+        column 0 of the output, and t = prompt_len."""
+        sm = self.served
+        logits, _ = prefill(sm.cfg, self.params, tokens, self.cache,
+                            frontend_stub(sm.cfg, sm.batch, self.device))
+        self._tok.copy_(torch.argmax(logits, dim=-1))           # (B, 1)
+        self._out[:, :1].copy_(self._tok)
+        self._t.fill_(sm.prompt_len)
+        return logits
+
+    def _decode(self) -> torch.Tensor:
+        """One greedy decode step at t: its token into column
+        t - prompt_len + 1 of the output, then t += 1."""
+        sm = self.served
+        logits, _ = decode_step(sm.cfg, self.params, self.cache, self._tok,
+                                self._t)
+        self._tok.copy_(torch.argmax(logits, dim=-1))
+        col = (self._t - (sm.prompt_len - 1)).long().view(1)
+        self._out.index_copy_(1, col, self._tok.to(torch.int32))
+        self._t.add_(1)
+        return logits
 
     def run(self, seed: int = 0) -> float:
         """One request: prefill + gen_len greedy decode steps on a prompt
@@ -157,29 +215,21 @@ class ModelInstance:
     def run_tokens(self, tokens: np.ndarray,
                    t0: Optional[float] = None) -> float:
         """Prefill ``tokens`` (batch, prompt_len), then decode gen_len
-        greedy tokens; ``last_tokens`` keeps the first sampled token and the
-        decoded ones.  Returns measured wall seconds since ``t0`` (default:
-        the call).  Every cache position a step reads was written in this
-        run, so the cache is reused."""
+        greedy tokens: one prefill call and ``gen_len`` decode calls, as
+        the reference dispatches them; ``last_tokens`` keeps the first
+        sampled token and the decoded ones.  Returns measured wall seconds
+        since ``t0`` (default: the call).  Every cache position a step
+        reads was written in this run, so the cache is reused."""
         sm = self.served
         if t0 is None:
             t0 = time.perf_counter()
-        toks = torch.as_tensor(np.asarray(tokens), dtype=torch.long,
-                               device=self.device)
-        out = torch.empty((sm.batch, sm.gen_len + 1), dtype=torch.int32,
-                          device=self.device)
-        logits, _ = prefill(sm.cfg, self.params, toks, self.cache,
-                            frontend_stub(sm.cfg, sm.batch, self.device))
-        tok = torch.argmax(logits, dim=-1)                      # (B, 1)
-        out[:, :1] = tok
-        for i in range(sm.gen_len):
-            logits, _ = decode_step(sm.cfg, self.params, self.cache, tok,
-                                    sm.prompt_len + i)
-            tok = torch.argmax(logits, dim=-1)
-            out[:, i + 1:i + 2] = tok
+        self.prefill_fn(tokens=tokens)
+        for _ in range(sm.gen_len):
+            self.decode_fn()
         _sync(self.device)
-        self.last_tokens = out
-        return time.perf_counter() - t0
+        dur = time.perf_counter() - t0
+        self.last_tokens = self._out[:, :sm.gen_len + 1].clone()
+        return dur
 
 
 class TorchModelExecutor:
@@ -233,8 +283,9 @@ class BatchingTorchExecutor:
     same ``ServedModel`` into one real batched execution.
 
     A *bucket* is a power-of-two batch size; each bucket gets its own
-    instance (cache at that batch), all set up and timed in ``calibrate``,
-    off the serving path; the buckets of one function share its weights.
+    instance (cache and programs at that batch), all set up and timed in
+    ``calibrate``, off the serving path; the buckets of one function share
+    its weights and its programs' memory pool.
     At run time the coalescer (``core.batching.BatchCoalescer``) calls
     ``run_batch`` with the gathered invocations; the batch executes once at
     the smallest bucket that fits and every member shares the measured wall
@@ -264,10 +315,14 @@ class BatchingTorchExecutor:
         inst = self._instances.get(key)
         if inst is None:
             self.build_seconds += build_kernels(self.device)
-            shared = next((i.params for (f, _), i in self._instances.items()
-                           if f == fn_name), None)
-            inst = ModelInstance(replace(self.served[fn_name], batch=bucket),
-                                 self.device, params=shared)
+            # the buckets of one function share its weights, side stream
+            # and memory pool
+            other = next((i for (f, _), i in self._instances.items()
+                          if f == fn_name), None)
+            inst = ModelInstance(
+                replace(self.served[fn_name], batch=bucket), self.device,
+                params=other and other.params,
+                programs=other and other.programs)
             inst.setup()
             self._instances[key] = inst
         return inst
@@ -309,7 +364,10 @@ class _ContinuousState:
     its lifetime.  ``tok``/``pos`` hold each slot's last sampled token and
     absolute decode position; ``finite`` stays true while every logit the
     data plane produced was finite.  ``logits`` keeps the last join's or
-    step's logits until its finiteness is noted, after its clock stops."""
+    step's logits until its finiteness is noted, after its clock stops.
+    ``joins`` / ``steps`` hold each bucket's compiled join and step (the
+    JAX executor's ``join_fns`` / ``step_fns``), ``programs`` all of
+    them."""
 
     served: ServedModel
     cap: int
@@ -320,6 +378,9 @@ class _ContinuousState:
     finite: Optional[torch.Tensor] = None     # () bool
     logits: Optional[torch.Tensor] = None     # (b, 1, V), until noted
     setup_seconds: float = 0.0
+    programs: Optional[ProgramSet] = None
+    joins: Dict[int, Program] = field(default_factory=dict)
+    steps: Dict[int, Program] = field(default_factory=dict)
 
 
 class ContinuousTorchExecutor:
@@ -360,7 +421,8 @@ class ContinuousTorchExecutor:
 
     @property
     def n_executions(self) -> int:
-        """Device dispatches (admit + step), as the JAX executor counts."""
+        """Device dispatches (admit + step), as the JAX executor counts: on
+        the card each is one replay of a captured program."""
         return self.n_admits + self.n_steps
 
     def buckets(self) -> List[int]:
@@ -380,44 +442,62 @@ class ContinuousTorchExecutor:
         self.build_seconds += build_kernels(self.device)
         t0 = time.perf_counter()
         sm = self.served[fn_name]
-        cfg = sm.cfg
+        cfg, dev = sm.cfg, self.device
         cap = pow2_bucket(self.max_batch)
-        st = _ContinuousState(served=sm, cap=cap)
-        st.params = init_params(cfg, self.seed, self.device)
-        st.slab = init_cache(cfg, cap, sm.prompt_len + sm.gen_len,
-                             self.device)
-        st.tok = torch.zeros((cap, 1), dtype=torch.int32, device=self.device)
-        st.pos = torch.zeros((cap,), dtype=torch.int32, device=self.device)
-        st.finite = torch.ones((), dtype=torch.bool, device=self.device)
-        # run every bucket once: kernels load and libraries initialise here,
-        # off the serving path (container build, in paper terms)
+        st = _ContinuousState(served=sm, cap=cap, programs=ProgramSet(dev))
+        st.params = init_params(cfg, self.seed, dev)
+        st.slab = init_cache(cfg, cap, sm.prompt_len + sm.gen_len, dev)
+        st.tok = torch.zeros((cap, 1), dtype=torch.int32, device=dev)
+        st.pos = torch.zeros((cap,), dtype=torch.int32, device=dev)
+        st.finite = torch.ones((), dtype=torch.bool, device=dev)
         for b in self.buckets():
-            ids = torch.arange(b, device=self.device)
-            self._join(st, torch.zeros((b, sm.prompt_len), dtype=torch.long,
-                                       device=self.device), ids)
-            self._note_finite(st)
-            self._step(st, ids)
-            self._note_finite(st)
-        _sync(self.device)
+            st.joins[b] = st.programs.add(
+                _weakly(st, self._join),
+                {"tokens": torch.zeros((b, sm.prompt_len), dtype=torch.long,
+                                       device=dev),
+                 "slot_ids": torch.arange(b, device=dev)},
+                host=("tokens", "slot_ids"))
+            st.steps[b] = st.programs.add(
+                _weakly(st, self._step),
+                {"slot_ids": torch.arange(b, device=dev)},
+                host=("slot_ids",))
+        # compile every bucket up front, as the JAX executor does (the whole
+        # bill is set-up, off the serving path; container build, in paper
+        # terms): one eager run of each program, then the capture of all
+        with st.programs.side_stream():
+            for b in self.buckets():
+                st.logits = st.joins[b].warm_up()
+                self._note_finite(st)
+                st.logits = st.steps[b].warm_up()
+                self._note_finite(st)
+        st.programs.capture()
+        _sync(dev)
         st.setup_seconds = time.perf_counter() - t0
         return st
 
-    # -- the two device programs -------------------------------------------
-    def _join(self, st: _ContinuousState, tokens: torch.Tensor,
-              slot_ids: torch.Tensor) -> None:
+    # -- the two programs' bodies --------------------------------------------
+    @staticmethod
+    def _join(st: _ContinuousState, tokens: torch.Tensor,
+              slot_ids: torch.Tensor) -> torch.Tensor:
+        """Prefill ``tokens`` (b, prompt_len) into a fresh cache, scatter it
+        into the slab rows ``slot_ids``, with the first greedy token and
+        the position; returns the logits (b, 1, V)."""
         sm = st.served
         cache = init_cache(sm.cfg, tokens.shape[0],
-                           sm.prompt_len + sm.gen_len, self.device)
+                           sm.prompt_len + sm.gen_len, tokens.device)
         lg, c = prefill(sm.cfg, st.params, tokens, cache)
         first = torch.argmax(lg, dim=-1).to(torch.int32)        # (b,1)
-        st.logits = lg
         for se, ce in zip(st.slab["layers"], c["layers"]):
             for key in se:
                 se[key].index_copy_(1, slot_ids, ce[key])
         st.tok.index_copy_(0, slot_ids, first)
         st.pos.index_fill_(0, slot_ids, sm.prompt_len)
+        return lg
 
-    def _step(self, st: _ContinuousState, slot_ids: torch.Tensor) -> None:
+    @staticmethod
+    def _step(st: _ContinuousState, slot_ids: torch.Tensor) -> torch.Tensor:
+        """One ragged decode step of the slab rows ``slot_ids``; returns the
+        logits (b, 1, V)."""
         sm = st.served
         # a private copy of the active rows: decode updates it in place
         sub = {"layers": [{key: t.index_select(1, slot_ids)
@@ -427,12 +507,12 @@ class ContinuousTorchExecutor:
         lg, c2 = decode_step_ragged(sm.cfg, st.params, sub,
                                     st.tok.index_select(0, slot_ids), pos)
         ntok = torch.argmax(lg, dim=-1).to(torch.int32)         # (b,1)
-        st.logits = lg
         for se, ce in zip(st.slab["layers"], c2["layers"]):
             for key in se:
                 se[key].index_copy_(1, slot_ids, ce[key])
         st.tok.index_copy_(0, slot_ids, ntok)
         st.pos.index_copy_(0, slot_ids, pos + 1)
+        return lg
 
     def _note_finite(self, st: _ContinuousState) -> None:
         """Fold the kept logits into ``finite`` (enqueued, not waited for)
@@ -441,11 +521,11 @@ class ContinuousTorchExecutor:
         st.logits = None
 
     # -- batcher hooks --------------------------------------------------------
-    def _pad_slots(self, slots: List[int]) -> Tuple[int, torch.Tensor]:
+    @staticmethod
+    def _pad_slots(slots: List[int]) -> Tuple[int, List[int]]:
         """Pad the slot list to its bucket by repeating the first slot."""
         b = pow2_bucket(len(slots))
-        ids = list(slots) + [slots[0]] * (b - len(slots))
-        return b, torch.tensor(ids, dtype=torch.long, device=self.device)
+        return b, list(slots) + [slots[0]] * (b - len(slots))
 
     def admit(self, fn_name: str, invs: List[Invocation],
               slots: List[int]) -> float:
@@ -474,11 +554,9 @@ class ContinuousTorchExecutor:
         if t0 is None:
             t0 = time.perf_counter()
         b, slot_ids = self._pad_slots(slots)
-        toks = torch.as_tensor(np.asarray(tokens), dtype=torch.long,
-                               device=self.device)
-        if b > len(slots):
-            toks = torch.cat([toks, toks[:1].expand(b - len(slots), -1)])
-        self._join(st, toks, slot_ids)
+        toks = np.asarray(tokens)
+        toks = np.concatenate([toks, np.repeat(toks[:1], b - len(slots), 0)])
+        st.logits = st.joins[b](tokens=toks, slot_ids=slot_ids)
         _sync(self.device)
         dur = time.perf_counter() - t0
         self._note_finite(st)
@@ -488,8 +566,8 @@ class ContinuousTorchExecutor:
     def step(self, fn_name: str, slots: List[int]) -> float:
         st = self._ensure(fn_name)
         t0 = time.perf_counter()
-        _, slot_ids = self._pad_slots(slots)
-        self._step(st, slot_ids)
+        b, slot_ids = self._pad_slots(slots)
+        st.logits = st.steps[b](slot_ids=slot_ids)
         _sync(self.device)
         dur = time.perf_counter() - t0
         self._note_finite(st)

@@ -25,14 +25,22 @@ from repro_torch.models import (decode_step_ragged, init_cache,  # noqa: E402
 pytestmark = pytest.mark.cuda
 
 
-def _smoke_tolerances():
-    """chip_smoke.py's tolerances, keyed by torch dtype: kernel vs plain
-    (``TOL``; ``SSD_TOL``, (y, state)) and Function gradients vs plain
-    (``GRAD_TOL``)."""
+def _smoke_module():
     path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
+    return smoke
+
+
+SMOKE = _smoke_module()
+
+
+def _smoke_tolerances():
+    """chip_smoke.py's tolerances, keyed by torch dtype: kernel vs plain
+    (``TOL``; ``SSD_TOL``, (y, state)) and Function gradients vs plain
+    (``GRAD_TOL``)."""
+    smoke = SMOKE
 
     def by_dtype(table):
         return {getattr(torch, name): tol for name, tol in table.items()}
@@ -589,3 +597,95 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
         assert ((a - b).abs().max() / b.abs().max()).item() <= 1e-3
     op = "ssd" if arch == "mamba2-370m" else "attention"
     assert after[op] - before[op] == 2 * 2 * cfg.n_layers
+
+
+@pytest.mark.parametrize("arch", ["minicpm-2b", "mamba2-370m", "gemma3-1b",
+                                  "mixtral-8x22b"])
+def test_replays_equal_the_eager_bodies_on_the_card(cuda, arch):
+    """``chip_smoke.replay_parity`` (phase 6 (b)) on the reduced config:
+    joins at buckets 8, 1, 4, 2, 8 with steps between, replayed from the
+    captured programs against the eager bodies on the same state (equal
+    bit for bit, or within ``TOL`` with the same greedy tokens where the
+    eager top-2 gap exceeds it); every join and step is one replay, so
+    ``n_executions`` equals the joins plus the ticks."""
+    rp = SMOKE.replay_parity(get_config(arch, reduced=True),
+                             torch.device("cuda"), prompt_len=48, gen_len=8)
+    assert rp["replays"] == rp["calls"] == len(SMOKE.REPLAY_SCRIPT)
+
+
+@pytest.mark.parametrize("arch", ["minicpm-2b", "whisper-tiny",
+                                  "phi-3-vision-4.2b", "zamba2-1.2b"])
+def test_model_instance_replays_equal_its_eager_bodies(cuda, arch,
+                                                       monkeypatch):
+    """``ModelInstance`` on the card: one prefill replay (frontend stub,
+    encoder and shared blocks inside it) and ``gen_len`` step replays give
+    the greedy tokens of an instance that runs its bodies eagerly on the
+    same weights."""
+    import numpy as np
+    from repro_torch.serving import ServedModel, graphs
+    from repro_torch.serving.executor import ModelInstance
+    cfg = get_config(arch, reduced=True)
+    served = ServedModel(cfg, prompt_len=24, gen_len=6)
+    dev = torch.device("cuda")
+    replayed = ModelInstance(served, dev)
+    replayed.setup()
+    monkeypatch.setattr(graphs, "graph_for", lambda device: None)
+    eager = ModelInstance(served, dev, params=replayed.params)
+    eager.setup()
+    tok = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 24))
+    r0 = graphs.CudaGraph.replays
+    for inst in (replayed, eager):
+        inst.run_tokens(tok)
+    assert graphs.CudaGraph.replays - r0 == 1 + served.gen_len
+    assert replayed.prefill_fn.graph is not None
+    assert eager.prefill_fn.graph is None
+    assert torch.equal(replayed.last_tokens, eager.last_tokens)
+
+
+def test_a_capture_survives_the_collector_freeing_old_graphs(cuda,
+                                                           monkeypatch):
+    """An instance let go of in a reference cycle keeps its graphs until
+    the cycle collector runs; a collection inside another instance's
+    capture destroys them there, which a capturing stream refuses (the
+    capture fails).  The old instance becomes garbage inside the new one's
+    capture, with the collector set to run often: set-up still captures,
+    and the instance serves."""
+    import gc
+    from repro_torch.serving import ServedModel, graphs
+    from repro_torch.serving.executor import ModelInstance
+    served = ServedModel(get_config("minicpm-2b", reduced=True),
+                         prompt_len=24, gen_len=4)
+    body, capture = ModelInstance._prefill, graphs.ProgramSet.capture
+    held = []
+
+    def letting_go(self, tokens):
+        if held and torch.cuda.is_current_stream_capturing():
+            held.clear()
+            # live allocations, so that collections run
+            junk = [[] for _ in range(5000)]
+            del junk
+        return body(self, tokens)
+
+    def collecting_capture(self):
+        gc.set_threshold(1, 1000)
+        gc.enable()
+        capture(self)
+
+    threshold = gc.get_threshold()
+    gc.disable()                # the old instance stays young until then
+    try:
+        held.append(ModelInstance(served, torch.device("cuda")))
+        held[0].setup()
+        # in a reference cycle, as the control plane's objects hold a
+        # backend's executor: only the collector frees it
+        held[0].cycle = held[0]
+        monkeypatch.setattr(ModelInstance, "_prefill", letting_go)
+        monkeypatch.setattr(graphs.ProgramSet, "capture", collecting_capture)
+        new = ModelInstance(served, torch.device("cuda"))
+        new.setup()
+    finally:
+        gc.set_threshold(*threshold)
+        gc.enable()
+    assert not held
+    new.run(seed=1)
+    assert new.prefill_fn.graph is not None and new.last_tokens.shape == (1, 5)
