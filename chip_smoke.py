@@ -45,10 +45,16 @@ Function (the kernel forward, the backward recomputed through
 ``kernels/ref.py``) against autograd through its plain version; for each
 main path, the ``lm_loss`` gradient of every leaf on two full-width layers
 in float32, card against CPU; then eight AdamW steps at full width and
-depth through ``launch.train``'s ``Trainer`` (B 4 x S 512 of
-``SyntheticLM``), asserting finite, falling losses, a finite non-zero
-gradient on every leaf, every leaf changed, each kernel launched twice a
-layer a step (forward and remat recompute), and profiling one more step.
+depth (B 4 x S 512 of ``SyntheticLM``), twice through the eager step
+(``make_train_step``) and once through ``launch.train``'s ``Trainer``,
+whose compiled step warms up and captures a CUDA graph at the first step
+and replays it at every later one, one run after another; asserting
+finite, falling losses, a finite non-zero gradient on every leaf, every
+leaf changed, each kernel launched twice a layer a step (forward and
+remat recompute; replays included), every compiled step after the first
+one replay, the compiled run's losses and first moments no further from
+the first eager run than the second eager run is, and profiling one more
+step of each (a replay: one graph launch, no kernel launch call).
 Phase 12 runs the multi-device dry-run (``repro_torch.launch.dryrun``) of
 three combinations at published width and depth on a fake 256-rank mesh,
 in three processes on the host, holds their counts to
@@ -225,7 +231,8 @@ TRAIN_SSD_CASES = [(2, 512, 8, 64, 128, 64), (2, 300, 8, 64, 128, 64),
 # max |Δg| / max |g| per leaf: both sides in float32 (TF32 off), summed in
 # other orders through two full-width layers and the vocabulary
 MODEL_GRAD_TOL = 1e-3
-# (c) AdamW steps at full width and depth, B x S from SyntheticLM.  The
+# (c) AdamW steps at full width and depth, B x S from SyntheticLM, eager
+# (twice, for the spread the compiled run is held to) and compiled.  The
 # schedule over 8 steps warms up in one: WSD (minicpm-2b) runs at the peak
 # for steps 1-7 and a tenth of it at step 8, cosine (mamba2-370m) decays
 # from step 1.  Peak learning rates: mamba2-370m at the launcher's default
@@ -1197,22 +1204,54 @@ def model_grad_parity(cfg, dev, S: int) -> Dict[str, Any]:
             "max_rel_grad_diff": worst, "worst_leaf": worst_key}
 
 
+def graph_pool_bytes(pool) -> Optional[int]:
+    """The bytes the caching allocator holds in the graph memory pool
+    ``pool`` (its segments' sizes); None where the snapshot names no
+    pools."""
+    import torch
+    segs = torch.cuda.memory_snapshot()
+    if segs and "segment_pool_id" not in segs[0]:
+        return None
+    return sum(s["total_size"] for s in segs
+               if tuple(s["segment_pool_id"]) == tuple(pool))
+
+
 def train_run(cfg, dev, smi: str, *, steps: int, batch: int, seq: int,
-              lr: float) -> Dict[str, Any]:
+              lr: float, eager: bool = False,
+              ref_mu: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
     """Phase 11 (c): ``launch.train``'s ``Trainer`` for ``steps`` AdamW
-    steps on ``SyntheticLM`` batches.  Asserts finite losses, the last
-    below the first, a finite non-zero gradient on every leaf (the first
-    step's first moment is a tenth of its clipped gradient), every leaf
-    changed, and each kernel launched twice a layer a step (forward and
-    remat recompute).  Then times one more step under the profiler, as
-    phase 7 does."""
+    steps on ``SyntheticLM`` batches, through its compiled step (the first
+    step warms up and captures, every later one replays), or with
+    ``eager`` through ``make_train_step``'s step, op by op, on the
+    Trainer's own weights, optimizer state and batches.  Asserts finite
+    losses, the last below the first, a finite non-zero gradient on every
+    leaf (the first step's first moment is a tenth of its clipped
+    gradient), every leaf changed, and each kernel launched twice a layer
+    a step (forward and remat recompute), replays included; compiled,
+    that every step after the first was one replay.  Then times one more
+    step under the profiler, as phase 7 does; a replayed step must show
+    one graph launch and no kernel launch call.  The first moments after
+    the first step: held against ``ref_mu`` (host tensors by leaf) on the
+    card, leaf by leaf, as ``mu_diff`` (the largest max |Δ| / max |ref|),
+    or, without ``ref_mu``, copied to the host as ``mu1``."""
     import torch
     from repro_torch.kernels import ops as kops
     from repro_torch.launch.train import Trainer
+    from repro_torch.train import make_train_step
     from repro_torch.train.tree import leaves_with_paths
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     tr = Trainer(cfg, steps=steps, batch=batch, seq=seq, lr=lr, device=dev)
+    step_fn = tr.step
+    if eager:
+        body = make_train_step(cfg, total_steps=steps, peak_lr=lr)
+
+        def step_fn(b):
+            t = time.perf_counter()
+            tokens = torch.from_numpy(b).to(dev, torch.long)
+            tr.params, tr.opt, loss = body(tr.params, tr.opt, tokens,
+                                           tr.frontend)
+            return float(loss), time.perf_counter() - t
     start = {"/".join(p): t.detach().to("cpu", copy=True)
              for p, t in leaves_with_paths(tr.params)}
     per_layer = {"attention": sum(g.count for g in cfg.groups()
@@ -1220,11 +1259,12 @@ def train_run(cfg, dev, smi: str, *, steps: int, batch: int, seq: int,
                  "decode_attention": 0,
                  "ssd": sum(g.count for g in cfg.groups()
                             if g.kind == "mamba")}
-    losses, secs = [], []
+    losses, secs, out = [], [], {}
     kops.reset_launch_counts()
+    replays = graph_replays()
     for step in range(steps):
         before = kops.launch_counts()
-        loss, sec = tr.step(tr.data.batch(step))
+        loss, sec = step_fn(tr.data.batch(step))
         after = kops.launch_counts()
         losses.append(loss)
         secs.append(sec)
@@ -1234,15 +1274,31 @@ def train_run(cfg, dev, smi: str, *, steps: int, batch: int, seq: int,
             raise AssertionError(f"phase 11: {cfg.name} step {step} "
                                  f"launches {got}, expected {want}")
         if step == 0:
+            worst = 0.0
             for path, m in leaves_with_paths(tr.opt.mu):
+                key = "/".join(path)
                 if not (torch.isfinite(m).all() and m.abs().max() > 0):
                     raise AssertionError(f"phase 11: {cfg.name} gradient "
-                                         f"of {'/'.join(path)} is not "
-                                         f"finite and non-zero")
+                                         f"of {key} is not finite and "
+                                         f"non-zero")
+                if ref_mu is not None:
+                    ref = ref_mu[key].to(dev)
+                    worst = max(worst, ((m - ref).abs().max()
+                                        / ref.abs().max()).item())
+                    del ref
+                else:
+                    out.setdefault("mu1", {})[key] = m.to("cpu", copy=True)
+            if ref_mu is not None:
+                out["mu_diff"] = worst
     launches = kops.launch_counts()
+    replays = graph_replays() - replays
+    if not eager:
+        check_replays(f"phase 11 {cfg.name}", dev, replays, steps - 1)
     peak = torch.cuda.max_memory_allocated(dev)
-    log(f"[train] {cfg.name}: losses " + " ".join(f"{x:.4f}" for x in
-                                                  losses))
+    peak_reserved = torch.cuda.max_memory_reserved(dev)
+    kind = "eager" if eager else "compiled"
+    log(f"[train] {cfg.name} {kind}: losses " + " ".join(
+        f"{x:.6f}" for x in losses))
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < \
             losses[0]:
         raise AssertionError(f"phase 11: {cfg.name} losses {losses}")
@@ -1253,27 +1309,76 @@ def train_run(cfg, dev, smi: str, *, steps: int, batch: int, seq: int,
                              f"training: {unchanged[:8]}")
     wall_ms = sorted(secs[1:])[len(secs[1:]) // 2] * 1e3
     batch_np = tr.data.batch(steps)
-    prof = device_profile(lambda: tr.step(batch_np)[1], runs=1)
+    prof = device_profile(lambda: step_fn(batch_np)[1], runs=1)
     idle = (1 - prof["device_busy_ms"] / wall_ms
             if prof["device_busy_ms"] else None)
     prof.update(unprofiled_ms=wall_ms, idle_share=idle)
+    replayed = not eager and str(dev).startswith("cuda")
+    if replayed and (prof["graph_launches"], prof["launch_calls"]) != (1, 0):
+        raise AssertionError(f"phase 11: {cfg.name} replayed step made "
+                             f"{prof['graph_launches']} graph launches and "
+                             f"{prof['launch_calls']} kernel launch calls")
+    pool = graph_pool_bytes(tr.step_fn.programs.pool) if replayed else None
+    capture_s = None if eager else tr.step_fn.capture_seconds
     tps = tr.tokens_per_step / (wall_ms / 1e3)
-    log(f"[train] {cfg.name} B {batch} x S {tr.data.cfg.seq_len}: step "
-        f"{wall_ms:.1f} ms (median of steps 2-{steps}; first "
-        f"{secs[0] * 1e3:.1f} ms), {tps:,.0f} tokens/s, peak memory "
-        f"{peak / 2**30:.2f} GiB; profiled step: device busy "
-        f"{prof['device_busy_ms']:.1f} ms (idle share "
-        f"{'not measured' if idle is None else f'{idle:.2f}'}), "
-        f"{prof['launch_calls']:.0f} kernel launch calls; top kernels "
-        f"(ms): " + ", ".join(f"{n[:40]} {t:.2f}" for n, t in prof["top"])
+    log(f"[train] {cfg.name} {kind} B {batch} x S {tr.data.cfg.seq_len}: "
+        f"step {wall_ms:.1f} ms (median of steps 2-{steps}; first "
+        f"{secs[0] * 1e3:.1f} ms"
+        + ("" if eager else f", capture {capture_s:.3f} s") + "), "
+        f"{tps:,.0f} tokens/s, peak memory {peak / 2**30:.2f} GiB "
+        f"allocated, {peak_reserved / 2**30:.2f} GiB reserved"
+        + ("" if eager else ", graph pool " + (
+            "not measured" if pool is None else f"{pool / 2**30:.2f} GiB"))
+        + f"; profiled step: device busy {prof['device_busy_ms']:.1f} ms "
+        f"(idle share {'not measured' if idle is None else f'{idle:.2f}'}"
+        f"), {prof['launch_calls']:.0f} kernel launch calls, "
+        f"{prof['graph_launches']:.0f} graph launches; top kernels (ms): "
+        + ", ".join(f"{n[:40]} {t:.2f}" for n, t in prof["top"])
         + f"; launches {launches}; {smi}")
-    out = {"losses": losses, "step_ms": [x * 1e3 for x in secs],
-           "median_step_ms": wall_ms, "tokens_per_s": tps,
-           "peak_memory_bytes": peak, "launches": launches,
-           "profile": prof, "phase_s": time.perf_counter() - t0}
-    del tr, start
+    out.update({"losses": losses, "step_ms": [x * 1e3 for x in secs],
+                "median_step_ms": wall_ms, "first_step_ms": secs[0] * 1e3,
+                "capture_s": capture_s, "tokens_per_s": tps,
+                "peak_memory_bytes": peak,
+                "peak_reserved_bytes": peak_reserved,
+                "graph_pool_bytes": pool, "launches": launches,
+                "replays": replays, "profile": prof,
+                "phase_s": time.perf_counter() - t0})
+    del tr, start, step_fn
     torch.cuda.empty_cache()
     return out
+
+
+def train_phase(cfg, dev, smi: str, *, steps: int, batch: int, seq: int,
+                lr: float) -> Dict[str, Any]:
+    """Phase 11 (c) for one model: the eager step twice, then the compiled
+    ``Trainer``, one after another (never two resident).  The second eager
+    run's distance from the first (the largest relative difference of the
+    losses, and of the first step's first moments, ``train_run``'s
+    ``mu_diff``) is the eager step's own spread on the card; the compiled
+    run's distance from the first eager run must not exceed it."""
+    kw = dict(steps=steps, batch=batch, seq=seq, lr=lr)
+    first = train_run(cfg, dev, smi, eager=True, **kw)
+    ref = first.pop("mu1")
+    again = train_run(cfg, dev, smi, eager=True, ref_mu=ref, **kw)
+    run = train_run(cfg, dev, smi, ref_mu=ref, **kw)
+    del ref
+
+    def loss_diff(r):
+        return max(abs(a - b) / abs(b)
+                   for a, b in zip(r["losses"], first["losses"]))
+
+    spread = {"loss": loss_diff(again), "mu": again["mu_diff"]}
+    diff = {"loss": loss_diff(run), "mu": run["mu_diff"]}
+    log(f"[train] {cfg.name}: compiled against eager, max relative "
+        f"difference of the losses {diff['loss']:.3g}, of the first "
+        f"moments {diff['mu']:.3g}; eager against eager {spread['loss']:.3g}"
+        f" and {spread['mu']:.3g}; {smi}")
+    if diff["loss"] > spread["loss"] or diff["mu"] > spread["mu"]:
+        raise AssertionError(f"phase 11: {cfg.name} compiled step off the "
+                             f"eager one by {diff}, beyond the eager "
+                             f"step's own spread {spread}")
+    return dict(run, eager=first, eager_again=again, spread=spread,
+                compiled_vs_eager=diff)
 
 
 def count_mismatch(got: Dict[str, Any], ref: Dict[str, Any],
@@ -2192,9 +2297,9 @@ def main() -> int:
             f"leaves {par['max_rel_grad_diff']:.3g} ({par['worst_leaf']}; "
             f"bound {MODEL_GRAD_TOL})")
         torch.cuda.empty_cache()
-        run = train_run(get_config(model), dev, smi, steps=TRAIN_STEPS,
-                        batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-                        lr=TRAIN_LR[model])
+        run = train_phase(get_config(model), dev, smi, steps=TRAIN_STEPS,
+                          batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                          lr=TRAIN_LR[model])
         report["train"][model] = {"grad_parity": par, **run}
 
     # -- 12. the dry-run, and its cost model against the card -----------------

@@ -1,8 +1,11 @@
 """End-to-end training driver on the PyTorch port: a ~100M-parameter
 MiniCPM-family model trained for a few hundred steps on the synthetic
 Markov-Zipf pipeline with the WSD schedule, gradient clipping, and
-checkpointing.  The twin of ``examples/train_small.py``; it runs on the
-card unless ``--device cpu`` is given (and raises without CUDA).
+checkpointing.  The twin of ``examples/train_small.py``: as that one takes
+``jax.jit`` of the step, this one takes the compiled step
+(``CompiledTrainStep``: on the card the first step is captured as a CUDA
+graph and every later one replays it).  It runs on the card unless
+``--device cpu`` is given (and raises without CUDA).
 
     python examples/train_small_torch.py [--steps 300] [--device cpu]
 (works after `pip install -e .` or with PYTHONPATH=src)
@@ -23,8 +26,8 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.device import device_name, resolve_device
 from repro_torch.models import init_params
-from repro_torch.train import (DataConfig, Prefetcher, SyntheticLM,
-                               adamw_init, checkpoint, make_train_step)
+from repro_torch.train import (CompiledTrainStep, DataConfig, Prefetcher,
+                               SyntheticLM, adamw_init, checkpoint)
 from repro_torch.train.tree import leaves
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
@@ -53,7 +56,9 @@ def main() -> None:
 
     params = init_params(cfg, 0, device)
     opt = adamw_init(params)
-    step_fn = make_train_step(cfg, total_steps=args.steps, peak_lr=1e-3)
+    # updates params and opt in place
+    step_fn = CompiledTrainStep(cfg, params, opt, args.batch, args.seq,
+                                total_steps=args.steps, peak_lr=1e-3)
 
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
                                   seq_len=args.seq, batch_size=args.batch))
@@ -62,8 +67,7 @@ def main() -> None:
     t0 = time.time()
     first = last = None
     for step in range(args.steps):
-        batch = torch.from_numpy(next(it)).to(device, torch.long)
-        params, opt, loss = step_fn(params, opt, batch)
+        loss = step_fn(next(it))
         if step == 0:
             first = float(loss)
         if step % 25 == 0 or step == args.steps - 1:

@@ -24,14 +24,18 @@ from ..configs import ARCH_IDS, get_config
 from ..device import DeviceLike, device_name, resolve_device
 from ..models import init_params
 from ..models.config import ModelConfig
-from ..train import (DataConfig, Prefetcher, SyntheticLM, adamw_init,
-                     checkpoint, make_train_step)
+from ..train import (CompiledTrainStep, DataConfig, Prefetcher,
+                     SyntheticLM, adamw_init, checkpoint)
 
 
 class Trainer:
     """What the launcher trains: the model's weights from seed 0, their
-    AdamW state, ``make_train_step``'s step over ``steps`` steps of the
-    schedule, and the data (``seq_len = max(seq, ssm_chunk or 1)``)."""
+    AdamW state, the data (``seq_len = max(seq, ssm_chunk or 1)``) and
+    the compiled step over ``steps`` steps of the schedule
+    (``CompiledTrainStep``, as the reference launcher takes
+    ``jax.jit(make_train_step(...))``).  ``params`` and ``opt`` are the
+    static trees the step updates in place; its first call compiles (on
+    the card, a CUDA graph capture), every later one replays."""
 
     def __init__(self, cfg: ModelConfig, *, steps: int, batch: int,
                  seq: int, lr: float, device: DeviceLike = None):
@@ -39,7 +43,6 @@ class Trainer:
         self.device = resolve_device(device)
         self.params = init_params(cfg, 0, self.device)
         self.opt = adamw_init(self.params)
-        self.step_fn = make_train_step(cfg, total_steps=steps, peak_lr=lr)
         self.data = SyntheticLM(DataConfig(
             vocab_size=cfg.vocab_size, seq_len=max(seq, cfg.ssm_chunk or 1),
             batch_size=batch))
@@ -48,6 +51,9 @@ class Trainer:
             self.frontend = torch.zeros(
                 (batch, cfg.n_frontend_tokens, cfg.d_model),
                 dtype=cfg.dtype(), device=self.device)
+        self.step_fn = CompiledTrainStep(
+            cfg, self.params, self.opt, batch, self.data.cfg.seq_len,
+            self.frontend, total_steps=steps, peak_lr=lr)
 
     @property
     def tokens_per_step(self) -> int:
@@ -55,12 +61,10 @@ class Trainer:
 
     def step(self, batch: np.ndarray) -> Tuple[float, float]:
         """One step on a (B, S) batch: (loss, wall seconds), the clock
-        stopped once the loss has reached the host."""
+        stopped once the loss has reached the host.  The first step's
+        seconds hold the compile, as the reference's first step does."""
         t0 = time.perf_counter()
-        tokens = torch.from_numpy(batch).to(self.device, torch.long)
-        self.params, self.opt, loss = self.step_fn(
-            self.params, self.opt, tokens, self.frontend)
-        loss = float(loss)
+        loss = float(self.step_fn(batch))
         return loss, time.perf_counter() - t0
 
 

@@ -392,9 +392,12 @@ class ContinuousTorchExecutor:
     * ``gen_steps(fn)`` — decode steps a request owes after its prefill.
 
     Batches are padded to power-of-two buckets by repeating the first
-    member's slot: duplicate rows compute identical values, so the duplicate
-    scatter is deterministic.  Runs on the card unless ``device`` names
-    another; weights come from ``init_params`` seeded with ``seed``.
+    member's slot, and every row is scattered into its slot.  The copies
+    compute identical values, except in an MoE layer, where they compete
+    for expert capacity and one can be dropped: for an MoE model the write
+    that lands in the first slot is unspecified (as in the reference).
+    Runs on the card unless ``device`` names another; weights come from
+    ``init_params`` seeded with ``seed``.
     """
 
     def __init__(self, served: Dict[str, ServedModel], max_batch: int = 8,
@@ -439,6 +442,11 @@ class ContinuousTorchExecutor:
         return st
 
     def _setup(self, fn_name: str) -> _ContinuousState:
+        """The function's weights, slab and programs, inside the set-up
+        clock: each bucket's join and step warmed up and captured, then
+        the slab, ``tok`` and ``pos`` zeroed, as the reference leaves them.
+        ``finite`` keeps the warm-up's logits folded in: it is the port's
+        own check, which the reference does not have."""
         self.build_seconds += build_kernels(self.device)
         t0 = time.perf_counter()
         sm = self.served[fn_name]
@@ -471,6 +479,14 @@ class ContinuousTorchExecutor:
                 st.logits = st.steps[b].warm_up()
                 self._note_finite(st)
         st.programs.capture()
+        # the reference warms up into locals and leaves the slab, tokens
+        # and positions as allocated: zero them in place (the graphs hold
+        # their addresses), after the warm-up on the current stream
+        for entry in st.slab["layers"]:
+            for t in entry.values():
+                t.zero_()
+        st.tok.zero_()
+        st.pos.zero_()
         _sync(dev)
         st.setup_seconds = time.perf_counter() - t0
         return st

@@ -6,6 +6,8 @@ and the continuous executor's join and step per bucket (``:337-375``),
 which the reference compiles inside the sandbox's set-up clock.  On the
 card a program is a CUDA graph captured at set-up and replayed on every
 call: one device dispatch per join or decode step, as in the reference.
+``train.CompiledTrainStep`` makes the training step one such program, the
+counterpart of the reference launcher's ``jax.jit(make_train_step(...))``.
 
 A :class:`Program` holds
 
@@ -97,10 +99,30 @@ class Program:
                                           dtype=inputs[name].dtype,
                                           pin_memory=pin)
                         for name in host}
+        # on the card, the event after the last staged copies: the pinned
+        # staging is written again only once they have drained
+        self.staged = torch.cuda.Event() if pin else None
         self.outputs: Any = None
         self.graph: Any = None
         self.launches: Dict[str, int] = {}
         self.runs = 0
+
+    def stage(self, **host: Any) -> None:
+        """Copy ``host`` values (arrays or lists shaped as their inputs)
+        through the pinned staging into the static inputs, on the current
+        stream; nothing waits for the device but the previous copies."""
+        if self.staged is not None:
+            self.staged.synchronize()
+        for name, value in host.items():
+            value = np.asarray(value)
+            if value.shape != tuple(self.staging[name].shape):
+                raise ValueError(f"{name}: shape {value.shape}, the "
+                                 f"program's input is "
+                                 f"{tuple(self.staging[name].shape)}")
+            self.staging[name].numpy()[...] = value
+            self.inputs[name].copy_(self.staging[name], non_blocking=True)
+        if self.staged is not None and host:
+            self.staged.record()
 
     def warm_up(self) -> Any:
         """Run the body eagerly (its kernels launch and count)."""
@@ -122,10 +144,9 @@ class Program:
     def __call__(self, **host: Any) -> Any:
         """Stage ``host`` values (arrays or lists shaped as their inputs)
         into the static inputs, then replay, or run the body off the card.
-        Returns the outputs; nothing waits for the device."""
-        for name, value in host.items():
-            self.staging[name].numpy()[...] = np.asarray(value)
-            self.inputs[name].copy_(self.staging[name], non_blocking=True)
+        Returns the outputs; nothing waits for the device but the previous
+        call's staged copies."""
+        self.stage(**host)
         if self.graph is None:
             self.outputs = self.body(**self.inputs)
         else:

@@ -689,3 +689,53 @@ def test_a_capture_survives_the_collector_freeing_old_graphs(cuda,
     assert not held
     new.run(seed=1)
     assert new.prefill_fn.graph is not None and new.last_tokens.shape == (1, 5)
+
+
+@pytest.mark.parametrize("arch", ["minicpm-2b", "mamba2-370m"])
+def test_compiled_train_step_on_the_card_matches_the_eager_step(cuda, arch):
+    """Four AdamW steps of the reduced model in float32 from the same
+    weights, eager (``make_train_step``) and compiled
+    (``CompiledTrainStep``: the first step warms up and captures, the
+    other three are replays): the losses and the first step's first
+    moments agree at the tolerance of
+    ``test_train_step_on_the_card_matches_the_cpu``, the counter reads 4,
+    and each replayed step counts its kernels' launches, twice a layer."""
+    import numpy as np
+    from repro_torch.serving import graphs
+    from repro_torch.train import (CompiledTrainStep, adamw_init,
+                                   make_train_step)
+    from repro_torch.train.tree import leaves, map_with_path
+    cfg = get_config(arch, reduced=True).with_(
+        compute_dtype="float32", param_dtype="float32")
+    p_cpu = init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    batches = [rng.integers(0, cfg.vocab_size, (2, 40)) for _ in range(4)]
+    op = "ssd" if arch == "mamba2-370m" else "attention"
+    out = {}
+    for kind in ("eager", "compiled"):
+        p = map_with_path(lambda _, t: t.to("cuda"), p_cpu)
+        opt = adamw_init(p)
+        if kind == "eager":
+            fn = make_train_step(cfg, total_steps=4, peak_lr=1e-3)
+        else:
+            compiled = CompiledTrainStep(cfg, p, opt, 2, 40, total_steps=4,
+                                         peak_lr=1e-3)
+        losses, r0 = [], graphs.CudaGraph.replays
+        for i, b in enumerate(batches):
+            before = ops.launch_counts()[op]
+            if kind == "eager":
+                p, opt, loss = fn(p, opt, torch.from_numpy(b).cuda())
+            else:
+                loss = compiled(b)
+            losses.append(float(loss))
+            assert ops.launch_counts()[op] - before == 2 * cfg.n_layers
+            if i == 0:
+                mu = [m.cpu() for m in leaves(opt.mu)]
+        assert int(opt.step) == 4
+        replays = graphs.CudaGraph.replays - r0
+        assert replays == (3 if kind == "compiled" else 0)
+        out[kind] = (torch.tensor(losses), mu)
+    torch.testing.assert_close(out["compiled"][0], out["eager"][0],
+                               rtol=2e-4, atol=0)
+    for a, b in zip(out["compiled"][1], out["eager"][1]):
+        assert ((a - b).abs().max() / b.abs().max()).item() <= 2e-4

@@ -395,3 +395,29 @@ def test_joins_and_steps_in_mixed_bucket_order_match_a_fresh_jax_executor():
     assert {b: p.runs for b, p in ts.joins.items()} == {1: 1, 2: 1, 4: 1,
                                                         8: 2}
     assert tex.logits_finite(fn)
+
+
+@pytest.mark.parametrize("arch", ["minicpm-2b", "mamba2-370m"])
+def test_set_up_leaves_the_slab_as_the_reference_does(arch):
+    """After ``_ensure`` and no join, the slab, the tokens and the
+    positions equal ``ContinuousJaxExecutor``'s, which warms up into
+    locals and leaves them as allocated (zeros): the port warms up in
+    place and zeroes them after."""
+    fn, P, G = "f", 16, 4
+    jex = ContinuousJaxExecutor(
+        {fn: JServed(j_get_config(arch, reduced=True), prompt_len=P,
+                     gen_len=G)}, max_batch=4)
+    tex = texec.ContinuousTorchExecutor(
+        {fn: texec.ServedModel(get_config(arch, reduced=True),
+                               prompt_len=P, gen_len=G)},
+        max_batch=4, device="cpu")
+    js, ts = jex._ensure(fn), tex._ensure(fn)
+    np.testing.assert_array_equal(ts.tok.numpy(), np.asarray(js.tok))
+    np.testing.assert_array_equal(ts.pos.numpy(), np.asarray(js.pos))
+    assert len(ts.slab["layers"]) == len(js.slab["layers"])
+    for e, je in zip(ts.slab["layers"], js.slab["layers"]):
+        assert sorted(e) == sorted(je)
+        for k in e:
+            np.testing.assert_array_equal(
+                e[k].float().numpy(), np.asarray(je[k], np.float32), k)
+    assert tex.logits_finite(fn)

@@ -13,10 +13,13 @@ with ``--init``, saves them there in the JAX package's checkpoint format;
 cross-load), or without it draws the port's own (seed 0, on the CPU, then
 moved to ``--device``), so that the card and the CPU start from the same
 weights.  Each peak learning rate trains afresh from those weights for
-``--steps`` steps of ``make_train_step`` (the config's schedule over the
-run) on ``SyntheticLM`` batch ``i`` at step ``i``.  One process imports
-only one of the two packages.  It prints one JSON line per learning rate:
-the losses and each step's seconds.
+``--steps`` steps of the compiled ``make_train_step`` (the config's
+schedule over the run) on ``SyntheticLM`` batch ``i`` at step ``i``:
+``jax.jit`` of it in the JAX package, ``CompiledTrainStep`` in the port
+(a CUDA graph on the card).  One process imports only one of the two
+packages.  It prints one JSON line per learning rate: the losses and each
+step's seconds, the first holding the compile (JAX) or the warm-up and
+the capture (the port).
 """
 import argparse
 import json
@@ -55,12 +58,11 @@ def run_jax(args) -> None:
 
 
 def run_torch(args) -> None:
-    import torch
     from repro_torch.configs import get_config
     from repro_torch.device import device_name, resolve_device
     from repro_torch.models import init_params
-    from repro_torch.train import (DataConfig, SyntheticLM, adamw_init,
-                                   checkpoint, make_train_step)
+    from repro_torch.train import (CompiledTrainStep, DataConfig,
+                                   SyntheticLM, adamw_init, checkpoint)
     from repro_torch.train.tree import map_with_path
     dev = resolve_device(args.device)
     cfg = get_config(args.arch).with_(n_layers=args.layers)
@@ -72,16 +74,16 @@ def run_torch(args) -> None:
         if args.init:
             params, _ = checkpoint.restore(args.init, 0, params)
         params = map_with_path(lambda _, t: t.to(dev), params)
-        step_fn = make_train_step(cfg, total_steps=args.steps, peak_lr=lr)
         opt, losses, secs = adamw_init(params), [], []
+        step_fn = CompiledTrainStep(cfg, params, opt, data.cfg.batch_size,
+                                    data.cfg.seq_len, total_steps=args.steps,
+                                    peak_lr=lr)
         for i in range(args.steps):
             t0 = time.perf_counter()
-            tokens = torch.from_numpy(data.batch(i)).to(dev, torch.long)
-            params, opt, loss = step_fn(params, opt, tokens)
-            losses.append(float(loss))
+            losses.append(float(step_fn(data.batch(i))))
             secs.append(time.perf_counter() - t0)
         report(args, cfg, lr, losses, secs, device_name(dev))
-        del params, opt
+        del params, opt, step_fn
 
 
 def report(args, cfg, lr, losses, secs, device) -> None:
