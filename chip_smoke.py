@@ -103,6 +103,20 @@ BF16_FLOPS = 989e12
 # in summation order (tiled online softmax and fused multiply-adds against
 # one softmax over the whole row), well inside the repo's f32 kernel bound.
 TOL = {"bfloat16": 2e-2, "float32": 3e-5}
+# Decode is also held row by row to the same tol relative to the plain row's
+# norm (|kernel - plain| <= tol * |plain| over each row's head dim): over a
+# long cache a row is an average of many keys' V and its elements are small
+# (about 0.006 at 64k live keys), so the absolute part of TOL alone would
+# let a combine that drops a group of ranges through.
+
+
+def row_rel_err(out, ref) -> float:
+    """The largest ``|out - ref| / |ref|`` over the rows of the last dim
+    (0 where the row is equal, inf where only ``ref``'s row is zero)."""
+    d = (out.float() - ref.float()).norm(dim=-1)
+    r = d / ref.float().norm(dim=-1)
+    return r.masked_fill(d == 0, 0.0).max().item()
+
 # ssd_scan, (y, final state), as tests/test_kernels.py: its sums run over a
 # whole chunk and, through the carried state, the whole sequence
 SSD_TOL = {"bfloat16": (6e-2, 1e-2), "float32": (1e-4, 1e-4)}
@@ -133,12 +147,18 @@ FA_CASES = [
     # at buckets 8 and 1, its local window of 512 within and past the
     # prompt, non-causal, one query over 1500 keys; whisper's encoder and
     # its cross-attention in decode; mixtral's and llama4-scout's GQA (6, 5)
-    # at hd 128; phi-3-vision's prompt behind its 576 frames at hd 96
+    # at hd 128; phi-3-vision's prompt behind its 576 frames at hd 96.
+    # At hd 256 the wrapper picks 128 q rows a CTA where 64 would not fit
+    # one CTA per SM (flash_block_q): bucket 8, a ragged Sq < Sk and a
+    # window below; 64 at the others
     (8, 512, 512, 4, 1, 256, True, 0),
+    (9, 200, 333, 4, 1, 256, True, 0),
+    (8, 600, 600, 4, 1, 256, True, 256),
     (1, 512, 512, 4, 1, 256, True, 512),
     (1, 1100, 1100, 4, 1, 256, True, 512),
     (2, 300, 300, 4, 1, 256, False, 0),
     (2, 1, 1500, 4, 1, 256, False, 0),
+    (1, 8192, 8192, 4, 1, 256, True, 0),    # a long prompt (phase 4)
     (1, 1500, 1500, 6, 6, 64, False, 0),
     (2, 1, 1500, 6, 6, 64, False, 0),
     (2, 128, 128, 48, 8, 128, True, 0),
@@ -169,6 +189,10 @@ DEC_CASES = [
     (8, 544, 4, 1, 256, False),
     (1, 544, 4, 1, 256, False),
     (3, 600, 4, 1, 256, True),
+    # gemma3-1b's global decode at batch 1 over a 32k and a 128k cache:
+    # one CTA per SM (split_plan), combined by tickets in groups
+    (1, 32768, 4, 1, 256, False),
+    (1, 131072, 4, 1, 256, False),
     (2, 544, 32, 8, 128, False),
     (2, 544, 40, 8, 128, False),
     (2, 544, 48, 8, 128, True),
@@ -1746,7 +1770,8 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.decode_attention import (decode_attention,
-                                                      decode_attention_plain)
+                                                      decode_attention_plain,
+                                                      split_plan)
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
@@ -1816,11 +1841,19 @@ def main() -> int:
         if not hgmma:
             raise AssertionError(f"the bf16 {src} kernels hold no HGMMA "
                                  f"instruction")
-        # the hd 256 flash instance (gemma3) has its own schedule
-        if src == "flash_attention" and not any(
-                "fa_kernel_wgmmaILi256E" in fn for fn in hgmma):
-            raise AssertionError("the bf16 flash kernel at hd 256 holds no "
-                                 "HGMMA instruction")
+        # the hd 256 flash instances (gemma3: 64 and 128 q rows a CTA) have
+        # their own schedule, which must not spill
+        if src == "flash_attention":
+            for nwg in (1, 2):
+                inst = f"fa_kernel_wgmmaILi256ELi{nwg}E"
+                if not any(inst in fn for fn in hgmma):
+                    raise AssertionError(f"the bf16 flash kernel at hd 256 "
+                                         f"({64 * nwg} q rows) holds no "
+                                         f"HGMMA instruction")
+                spilled = [fn for fn in report["spills"][src] if inst in fn]
+                if spilled:
+                    raise AssertionError(f"the bf16 flash kernel at hd 256 "
+                                         f"spills: {spilled}")
         report["hgmma"][src] = hgmma
 
     # -- 3. kernel vs plain on the card ----------------------------------------
@@ -1831,17 +1864,23 @@ def main() -> int:
     def rnd(*shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    def check(tag, out, ref, dtype_name, tol=None):
+    def check(tag, out, ref, dtype_name, tol=None, rows=False):
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs()
         tol = TOL[dtype_name] if tol is None else tol
         bad = (err > tol + tol * ref.float().abs()).sum().item()
+        rel = row_rel_err(out, ref) if rows else None
         log(f"[parity] {tag} {dtype_name}: max_abs_err {err.max().item():.3g}"
             f" at max |plain| {ref.float().abs().max().item():.3g} (tol "
-            f"{tol} + {tol} * |plain|)")
+            f"{tol} + {tol} * |plain|)"
+            + ("" if rel is None else f"; row error / row norm {rel:.3g} "
+               f"(tol {tol})"))
         if bad:
             raise AssertionError(f"{tag} {dtype_name}: {bad} elements "
                                  f"outside tolerance")
+        if rel is not None and not rel <= tol:
+            raise AssertionError(f"{tag} {dtype_name}: a row's error is "
+                                 f"{rel:.3g} of its norm, past {tol}")
         return err.max().item()
 
     errs = {"flash_attention": {}, "decode_attention": {}, "ssd_scan": {}}
@@ -1868,7 +1907,7 @@ def main() -> int:
             out = decode_attention(q, k, v, vlen)
             errs["decode_attention"][(c, dn)] = check(
                 f"decode_attention {c} valid_len {vlen.tolist()}", out,
-                decode_attention_plain(q, k, v, vlen), dn)
+                decode_attention_plain(q, k, v, vlen), dn, rows=True)
             if zero_row and out[0].abs().max().item() != 0.0:
                 raise AssertionError("valid_len = 0 must give zeros")
         for c in SSD_CASES:
@@ -1915,6 +1954,7 @@ def main() -> int:
         return sorted(ts)[len(ts) // 2]
 
     bf = torch.bfloat16
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def bound(nbytes, flops):
         b_ms, f_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
@@ -1971,7 +2011,9 @@ def main() -> int:
         t.update(ms_bucket1=t1["ms"], library_ms_bucket1=t1["library_ms"],
                  bound_ms_bucket1=t1["bound_ms"])
     # gemma3-1b at hd 256 (4 heads over 1 KV head): its join's attention
-    # (a global layer's, causal over the prompt) and its global decode
+    # (a global layer's, causal over the prompt) and its global decode, at
+    # buckets 8 and 1, and the decode at batch 1 over a 32k and a 128k
+    # cache (its context is 128k)
     hd256 = {"flash_attention": [time_fa(b, S=512, H=4, Hkv=1, hd=256)
                                  for b in (8, 1)],
              "decode_attention": [time_dec(b, L=544, H=4, Hkv=1, hd=256)
@@ -1990,6 +2032,26 @@ def main() -> int:
                             (1, "ms_bucket1", "plain_ms_bucket1",
                              "library_ms_bucket1", "bound_ms_bucket1")))
             + f" ({t8['bound_by']}); {smi}")
+    hd256["decode_attention"]["long_context"] = {
+        L: time_dec(1, L=L, H=4, Hkv=1, hd=256) for L in (32768, 131072)}
+    for L, t in hd256["decode_attention"]["long_context"].items():
+        log(f"[timing] decode_attention gemma3-1b hd 256 (1 x {L} x 4/1 "
+            f"heads), plan {split_plan(1, 1, L, n_sms)}: kernel "
+            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+            f"{t['library_ms']:.4f} ms, bound {t['bound_ms'] * 1e3:.2f} us "
+            f"({t['bound_by']}), bound share {t['bound_ms'] / t['ms']:.2f}; "
+            f"{smi}")
+    # and its join's attention at batch 1 over a long prompt (8k and 32k
+    # tokens, causal), where each K/V tile serves many q tiles
+    hd256["flash_attention"]["long_prompt"] = {
+        S: time_fa(1, plain=False, S=S, H=4, Hkv=1, hd=256)
+        for S in (8192, 32768)}
+    for S, t in hd256["flash_attention"]["long_prompt"].items():
+        log(f"[timing] flash_attention gemma3-1b hd 256 (1 x {S} x 4/1 "
+            f"heads) causal: kernel {t['ms']:.4f} ms, library "
+            f"{t['library_ms']:.4f} ms, bound {t['bound_ms'] * 1e3:.2f} us "
+            f"({t['bound_by']}), bound share {t['bound_ms'] / t['ms']:.2f}; "
+            f"{smi}")
 
     # What one CTA pays: 36 q tiles of 128 rows (one CTA per SM), not
     # causal, over 1 and 32 K/V tiles of 64 keys; the fit gives the fixed
@@ -2322,13 +2384,18 @@ def main() -> int:
              "src/repro_torch/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention.py:98", 13,
              "bf16: wgmma for both products, TMA loads and store, "
-             "heaviest q tiles first; f32: CUDA cores"),
+             "heaviest q tiles first, each warpgroup 64 q rows and all "
+             "output columns (hd 256: CTAs of 64 or 128 rows by the grid); "
+             "f32: CUDA cores"),
             ("decode_attention", dec, "decode_attention", "minicpm-2b",
              (8, 544, 36, 36, 64, False),
              "src/repro_torch/csrc/decode_attention.cu",
              "src/repro/kernels/decode_attention.py:69", 13,
              "split over the cache, one cluster per (b, KV head), "
-             "combine through distributed shared memory, cp.async ring"),
+             "combine through distributed shared memory, cp.async ring; "
+             "bf16 hd 256: mma.sync, each warp on its own TMA-loaded "
+             "16-key blocks; hd 256 and plans past 8 splits: combined by "
+             "tickets in groups, one CTA per SM at long context"),
             ("ssd_scan", ssd, "ssd", "mamba2-370m",
              (8, 512, 32, 64, 128, 64, False),
              "src/repro_torch/csrc/ssd_scan.cu",

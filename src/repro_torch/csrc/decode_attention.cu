@@ -4,50 +4,83 @@
 // Replaces the Pallas TPU kernel src/repro/kernels/decode_attention.py,
 // function decode_attention (body _dec_kernel).  Same contract: q (B,Hq,hd),
 // k/v (B,L,Hkv,hd) in prefix layout, valid_len (B,) int32 -> o (B,Hq,hd).
-// Scores scaled by 1/sqrt(hd) on q; the G = Hq/Hkv query heads of a KV head
+// Scores scaled by 1/sqrt(hd); the G = Hq/Hkv query heads of a KV head
 // are processed together; keys at or past min(valid_len, L) are masked and
 // never read; online softmax in float32 with the finite mask value -1e30; l
 // floored at 1e-30, so a row with valid_len = 0 writes zeros.
 //
 // Bound on an H100: decoding reads every live K and V row once and does
 // about 4 flops per K/V element, far below the ~295 flops/byte at which the
-// card stops being memory-bound, so it stays on the CUDA cores.  At the
+// card stops being memory-bound.  The CUDA cores keep up with the bytes at
+// hd <= 128; at hd 256 with four query heads a KV head they do not (below),
+// so that instance runs its products on the tensor cores.  At the
 // serving shape (minicpm-2b, batch 8, valid_len 544, bf16) the bound is
-// 2*8*544*36*64*2 B = 40 MB at 3.35 TB/s, about 12 us.  The design is about
-// bytes in flight:
+// 2*8*544*36*64*2 B = 40 MB at 3.35 TB/s, about 12 us; gemma3-1b's global
+// layer at batch 1 and a 128k cache reads 2*131072*256*2 B = 134 MB, 40 us.
+// The design is about bytes in flight:
 //
 // * Split over the cache.  The wrapper's plan (kernels/decode_attention.py,
-//   split_plan) cuts L into n_split <= 8 contiguous ranges of `chunk` keys,
-//   one CTA each, so that B * Hkv * n_split CTAs fill the 132 SMs at batch 1
-//   as well as at batch 8.  A range at or past valid_len reads nothing.
-// * Combine in the same launch.  The n_split CTAs of one (b, KV head) form
-//   one thread-block cluster.  Each leaves its partial (m, l, acc) in its
-//   shared memory; after a cluster barrier, rank 0 reads the others'
-//   partials through distributed shared memory and combines them by
-//   log-sum-exp.  No second kernel, global scratch or atomics.
-// * Loads.  K/V tiles of 32 keys stream through a four-stage ring of
-//   16-byte cp.async copies in the input's dtype (not widened), so three
-//   tiles are in flight while one is scored.  The ring is small (32 KB at
-//   hd 64 in bf16), so six CTAs fit on an SM and batch 8 runs in one wave.
-//   At hd 256 in float32 four stages would take 256 KB, so that instance
-//   keeps three (192 KB).
-// * Scores.  Each of the 8 warps owns 4 keys of a tile and runs its own
-//   online softmax: lanes span the head dim (two elements each), a shuffle
-//   reduction gives each key's score, and all G query rows share the K/V
-//   row.  The 8 warps' partials are combined in shared memory first.
+//   split_plan) cuts L into n_split contiguous ranges of `chunk` keys, one
+//   CTA each.  Up to 8 ranges (one portable cluster) aim at four CTAs per
+//   SM over B * Hkv * n_split; where B * Hkv is too small for 8 ranges each
+//   to fill the card (one KV head at batch 1), a long cache is cut into as
+//   many ranges as one CTA per SM gives, each of at least MIN_CHUNK keys.
+//   A range at or past valid_len reads nothing.
+// * Combine in the same launch, by one of two means (split_groups):
+//   - cluster (hd <= 128, n_split <= 8): the n_split CTAs of one (b, KV
+//     head) form one thread-block cluster.  Each leaves its partial (m, l,
+//     acc) in its shared memory; after a cluster barrier, rank 0 reads the
+//     others' partials through distributed shared memory, combines them by
+//     log-sum-exp and writes o; a second barrier keeps them alive until
+//     read.  No global scratch or atomics.
+//   - tickets (hd 256 at every plan, any head dim past 8 ranges): no
+//     cluster.  Each CTA writes its partial to global scratch (the wrapper's
+//     torch.empty, one per launch), fences, and takes a ticket of its group
+//     of `group` consecutive ranges; the last to arrive combines the
+//     group's partials in range order and writes o, or, with several groups,
+//     the group's partial, and takes a ticket of the (b, KV head), whose
+//     last group combines the groups in order.  The others exit at once: no barrier
+//     between CTAs at all, and no CTA waits for another to be scheduled.
+//     The order of every sum is fixed, whichever CTA arrives last, so a
+//     replay is equal bit for bit.  The tickets sit at the end of the
+//     same scratch and the launcher zeroes them on the launch's stream
+//     (cudaMemsetAsync, a memset node in a captured graph), so each launch
+//     and each replay counts on its own: launches on two streams at once,
+//     or a launch that aborted, share no counter.
+// * Loads and scores, two ways:
+//   - dec_kernel (every head dim but bf16 at hd 256): K/V tiles of 32 keys
+//     stream through a four-stage ring of 16-byte cp.async copies by every
+//     thread, in the input's dtype (not widened), so three tiles are in
+//     flight while one is scored.  The ring is small (32 KB at hd 64 in
+//     bf16), so six CTAs fit on an SM and batch 8 runs in one wave; at hd
+//     256 in float32 four stages would take 256 KB, so that instance keeps
+//     three (192 KB).  Each of the 8 warps owns 4 keys of a tile and runs
+//     its own online softmax on the CUDA cores: lanes span the head dim
+//     (two elements each), a shuffle reduction gives each key's score, and
+//     all G query rows share the K/V row.
+//   - bf16 at hd 256 (dec_kernel_tc, gemma3-1b): on the tensor cores, each
+//     warp on its own 16-key blocks loaded by TMA; see the comment above
+//     it.  On the CUDA cores the G = 4 heads of hd 256 cost about 600
+//     instructions a warp per 4 keys, and a CTA could not score as fast as
+//     it loaded.
+//   The 8 warps' partials are combined in shared memory first.
 #include <cmath>
 #include <cooperative_groups.h>
 
+#include "hopper.cuh"
 #include "tile.cuh"
 
 namespace {
 
 namespace cg = cooperative_groups;
+namespace hp = repro::hopper;
 using repro::NEG_INF;
 constexpr int BK = 32;      // keys per tile
 constexpr int NT = 256;     // threads per CTA (8 warps)
 constexpr int NW = NT / 32;
 constexpr int KG = 4;       // keys a warp scores together
+constexpr int MAX_CLUSTER = 8;   // ranges of the cluster combine (portable)
+constexpr int MAX_GROUP = 32;    // partials one ticket combine reads
 constexpr float LOG2E = 1.4426950408889634f;
 
 // GC: G rounded up to the compiled group capacity (1, 4, 16 or 32)
@@ -60,7 +93,13 @@ struct Cfg {
   static constexpr int WPART = NW * (2 * GC + GC * HD) * 4;  // warps' partials
   static constexpr int PART = (2 * GC + GC * HD) * 4;        // the CTA's
   static constexpr int SCRATCH = RING > WPART ? RING : WPART;
-  static constexpr int SMEM = SCRATCH + PART + 8 * GC * 4 + GC * 4;
+  // then: the CTA's partial (cluster combine), the combine's weights and
+  // its partials' l, 1 / l, the last-arrival flag
+  static constexpr int WTS_OFF = SCRATCH + PART;
+  static constexpr int LS_OFF = WTS_OFF + MAX_GROUP * GC * 4;
+  static constexpr int INV_OFF = LS_OFF + MAX_GROUP * GC * 4;
+  static constexpr int FLAG_OFF = INV_OFF + GC * 4;
+  static constexpr int SMEM = FLAG_OFF + 16;
 };
 
 template <typename T> struct Pair;
@@ -102,23 +141,170 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// The log-sum-exp combine of `count` partials at src (each `ps` floats:
+// m[G], l[G], acc[G*HD]), in their order, by the whole CTA: into the
+// partial at dst, or, where dst is null, o / l into o.  Reads bypass L1
+// (other CTAs wrote them) and are issued together, not one partial after
+// another: every m and l at once into shared memory (ml: m, then the
+// weights, and ls: l, MAX_GROUP * GC floats each), then each thread's
+// accumulator elements, four partials at a time.
+template <typename T, int HD, int GC>
+__device__ __forceinline__ void combine(const float* src, int count, int ps,
+                                        int G, float* dst, T* o, float* ml,
+                                        float* ls, float* inv, int tid) {
+  for (int i = tid; i < count * G; i += NT) {
+    const int r = i / G, g = i - r * G;
+    ml[r * GC + g] = __ldcg(src + r * ps + g);
+    ls[r * GC + g] = __ldcg(src + r * ps + G + g);
+  }
+  __syncthreads();
+  for (int g = tid; g < G; g += NT) {
+    float M = NEG_INF;
+    for (int r = 0; r < count; ++r) M = fmaxf(M, ml[r * GC + g]);
+    float s = 0.f;
+    for (int r = 0; r < count; ++r) {
+      const float w = fast_exp2(ml[r * GC + g] - M);
+      ml[r * GC + g] = w;
+      s = fmaf(w, ls[r * GC + g], s);
+    }
+    if (dst) {
+      dst[g] = M;
+      dst[G + g] = s;
+    } else {
+      inv[g] = 1.f / fmaxf(s, 1e-30f);
+    }
+  }
+  __syncthreads();
+  constexpr int PER = (GC * HD + NT - 1) / NT;   // a thread's elements
+  float a[PER];
+#pragma unroll
+  for (int j = 0; j < PER; ++j) a[j] = 0.f;
+#pragma unroll 4
+  for (int r = 0; r < count; ++r) {
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int p = tid + NT * j;
+      if (p < G * HD)
+        a[j] = fmaf(ml[r * GC + p / HD], __ldcg(src + r * ps + 2 * G + p),
+                    a[j]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int p = tid + NT * j;
+    if (p >= G * HD) break;
+    if (dst)
+      dst[2 * G + p] = a[j];
+    else
+      o[p] = repro::from_float<T>(a[j] * inv[p / HD]);
+  }
+}
+
+// One ticket of `members` arrivals at *ticket: true for the last;
+// broadcast to the CTA through *flag.  Thread 0's fences order the whole
+// CTA's partial, which the barrier before them orders for it (fences are
+// cumulative), before its arrival, and the others' partials after it, for
+// the reads that follow the barrier after.
+__device__ __forceinline__ bool last_to_arrive(unsigned int* ticket,
+                                               int members, int* flag,
+                                               int tid) {
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    const bool last = atomicAdd(ticket, 1u) == (unsigned int)(members - 1);
+    if (last) __threadfence();
+    *flag = last;
+  }
+  __syncthreads();
+  return *flag;
+}
+
+// The 8 warps' partials at w0 (each WS = 2*GC + GC*HD floats: m, l, acc)
+// -> the CTA's (m, l, acc): m at pm[g], l at pl[g], acc at pa[g * HD + d]
+template <int HD, int GC>
+__device__ __forceinline__ void cta_partial(const float* w0, float* pm,
+                                            float* pl, float* pa, int G,
+                                            int tid) {
+  constexpr int WS = 2 * GC + GC * HD;
+  for (int p = tid; p < G * HD; p += NT) {
+    const int g = p / HD;
+    float M = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) M = fmaxf(M, w0[w * WS + g]);
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w)
+      a = fmaf(fast_exp2(w0[w * WS + g] - M), w0[w * WS + 2 * GC + p], a);
+    pa[p] = a;
+  }
+  for (int g = tid; g < G; g += NT) {
+    float M = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) M = fmaxf(M, w0[w * WS + g]);
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w)
+      s = fmaf(fast_exp2(w0[w * WS + g] - M), w0[w * WS + GC + g], s);
+    pm[g] = M;
+    pl[g] = s;
+  }
+}
+
+// The ticket combine, after the warps' partials are at w0: this CTA's
+// partial into its slot of scratch (B * Hkv * (n_split + groups) slots of
+// G * (HD + 2) floats, then the tickets: B * Hkv * groups of the groups,
+// B * Hkv of the (b, KV head)s), then the last of its group of `group`
+// ranges combines the group, and the last group the groups
+template <typename T, int HD, int GC>
+__device__ __forceinline__ void ticket_combine(
+    const float* w0, float* scratch, T* o, float* wts, float* ls, float* inv,
+    int* flag, int G, int group, int tid) {
+  const int split = blockIdx.x, n_split = gridDim.x;
+  const int ps = G * (HD + 2);
+  const long bh = (long)blockIdx.z * gridDim.y + blockIdx.y;
+  const int groups = (n_split + group - 1) / group;
+  const int grp = split / group, first = grp * group;
+  const int members = min(group, n_split - first);
+  const long bhs = (long)gridDim.z * gridDim.y;
+  float* slot = scratch + (bh * n_split + split) * ps;
+  unsigned int* tickets =
+      reinterpret_cast<unsigned int*>(scratch + bhs * (n_split + groups) * ps);
+  cta_partial<HD, GC>(w0, slot, slot + G, slot + 2 * G, G, tid);
+  if (!last_to_arrive(&tickets[bh * groups + grp], members, flag, tid))
+    return;
+  float* gslot = scratch + (bhs * n_split + bh * groups) * ps;
+  combine<T, HD, GC>(scratch + (bh * n_split + first) * ps, members, ps, G,
+                     groups > 1 ? gslot + grp * ps : nullptr, o, wts, ls,
+                     inv, tid);
+  if (groups == 1) return;
+  if (!last_to_arrive(&tickets[bhs * groups + bh], groups, flag, tid))
+    return;
+  combine<T, HD, GC>(gslot, groups, ps, G, nullptr, o, wts, ls, inv, tid);
+}
+
+// CUDA cores, every head dim but bf16 at hd 256 (dec_kernel_tc).
+// split = blockIdx.x of gridDim.x = n_split ranges of `chunk` keys;
+// group: 0 for the cluster combine (the launch is one cluster of n_split
+// CTAs per (b, KV head)), else the ticket combine's ranges per group, with
+// scratch its partials (wrapper-allocated)
 template <typename T, int HD, int GC>
 __global__ void __launch_bounds__(NT)
     dec_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const int* __restrict__ valid_len,
-               T* __restrict__ o, int L, int Hq, int Hkv, int chunk,
-               float scale_log2) {
+               T* __restrict__ o, float* __restrict__ scratch, int L, int Hq,
+               int Hkv, int chunk, int group, float scale_log2) {
   using C = Cfg<T, HD, GC>;
   constexpr int NCH = C::NCH, STAGES = C::STAGES;
   constexpr int CPR = HD * (int)sizeof(T) / 16;  // 16-byte chunks per row
   extern __shared__ __align__(16) uint8_t smem[];
   float* part = reinterpret_cast<float*>(smem + C::SCRATCH);  // m, l, acc
-  float* wts = part + 2 * GC + GC * HD;   // rank 0: weight per (split, g)
-  float* inv = wts + 8 * GC;              // rank 0: 1 / l per g
+  float* wts = reinterpret_cast<float*>(smem + C::WTS_OFF);  // per (r, g)
+  float* ls = reinterpret_cast<float*>(smem + C::LS_OFF);    // per (r, g)
+  float* inv = reinterpret_cast<float*>(smem + C::INV_OFF);  // 1 / l per g
+  int* flag = reinterpret_cast<int*>(smem + C::FLAG_OFF);
 
-  cg::cluster_group cluster = cg::this_cluster();
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
-  const int n_split = gridDim.x;          // = the cluster's size
+  const int n_split = gridDim.x;
   const int G = Hq / Hkv;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const long kv_row = (long)Hkv * HD;
@@ -232,7 +418,7 @@ __global__ void __launch_bounds__(NT)
   cp_async_wait<0>();
   __syncthreads();                     // the ring is free for the partials
 
-  // the 4 warps' partials -> the CTA's (m, l, acc) in `part`
+  // the 8 warps' partials, in the ring
   float* wp = reinterpret_cast<float*>(smem) + warp * (2 * GC + GC * HD);
 #pragma unroll
   for (int g = 0; g < GC; ++g) {
@@ -252,146 +438,374 @@ __global__ void __launch_bounds__(NT)
   }
   __syncthreads();
   const float* w0 = reinterpret_cast<const float*>(smem);
-  constexpr int WS = 2 * GC + GC * HD;  // one warp's partial, in floats
-  for (int p = tid; p < G * HD; p += NT) {
-    const int g = p / HD;
-    float M = NEG_INF;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) M = fmaxf(M, w0[w * WS + g]);
-    float a = 0.f;
-#pragma unroll
-    for (int w = 0; w < NW; ++w)
-      a = fmaf(fast_exp2(w0[w * WS + g] - M), w0[w * WS + 2 * GC + p], a);
-    part[2 * GC + p] = a;
-  }
-  for (int g = tid; g < G; g += NT) {
-    float M = NEG_INF;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) M = fmaxf(M, w0[w * WS + g]);
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < NW; ++w)
-      s = fmaf(fast_exp2(w0[w * WS + g] - M), w0[w * WS + GC + g], s);
-    part[g] = M;
-    part[GC + g] = s;
-  }
 
-  // the cluster's partials -> o, on rank 0, through distributed shared memory
-  cluster.sync();
-  if (cluster.block_rank() == 0) {
-    for (int g = tid; g < G; g += NT) {
-      float M = NEG_INF;
-      for (int r = 0; r < n_split; ++r)
-        M = fmaxf(M, cluster.map_shared_rank(part, r)[g]);
-      float s = 0.f;
-      for (int r = 0; r < n_split; ++r) {
-        const float* pr = cluster.map_shared_rank(part, r);
-        const float w = fast_exp2(pr[g] - M);
-        wts[r * GC + g] = w;
-        s = fmaf(w, pr[GC + g], s);
+  if (group == 0) {
+    // the cluster's partials -> o, on rank 0, through distributed shared
+    // memory
+    cta_partial<HD, GC>(w0, part, part + GC, part + 2 * GC, G, tid);
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    if (cluster.block_rank() == 0) {
+      for (int g = tid; g < G; g += NT) {
+        float M = NEG_INF;
+        for (int r = 0; r < n_split; ++r)
+          M = fmaxf(M, cluster.map_shared_rank(part, r)[g]);
+        float s = 0.f;
+        for (int r = 0; r < n_split; ++r) {
+          const float* pr = cluster.map_shared_rank(part, r);
+          const float w = fast_exp2(pr[g] - M);
+          wts[r * GC + g] = w;
+          s = fmaf(w, pr[GC + g], s);
+        }
+        inv[g] = 1.f / fmaxf(s, 1e-30f);
       }
-      inv[g] = 1.f / fmaxf(s, 1e-30f);
+      __syncthreads();
+      for (int p = tid; p < G * HD; p += NT) {
+        const int g = p / HD;
+        float a = 0.f;
+        for (int r = 0; r < n_split; ++r)
+          a = fmaf(wts[r * GC + g],
+                   cluster.map_shared_rank(part, r)[2 * GC + p], a);
+        o[qo_off + p] = repro::from_float<T>(a * inv[g]);
+      }
     }
-    __syncthreads();
-    for (int p = tid; p < G * HD; p += NT) {
-      const int g = p / HD;
-      float a = 0.f;
-      for (int r = 0; r < n_split; ++r)
-        a = fmaf(wts[r * GC + g], cluster.map_shared_rank(part, r)[2 * GC + p],
-                 a);
-      o[qo_off + p] = repro::from_float<T>(a * inv[g]);
+    cluster.sync();                    // keep every partial alive until read
+    return;
+  }
+  ticket_combine<T, HD, GC>(w0, scratch, o + qo_off, wts, ls, inv, flag, G,
+                            group, tid);
+}
+
+// -- bf16 at hd 256: tensor cores ----------------------------------------------
+// Each warp streams its own 16-key blocks of the CTA's range (blocks w, w +
+// 8, ...) through its own stage: one TMA box of 16 rows x 64 columns a
+// panel, four panels of K and four of V (16 KB), 128-byte swizzle, on the
+// warp's mbarrier.  S^T = K q^T is mma.sync m16n8k16 with the 16 keys as
+// rows (ldmatrix from the swizzled panels: no bank conflict) and q^T (the G
+// <= 4 query heads, zero-padded to 8 columns) as a register operand loaded
+// once; the online softmax runs on the fragments (max over the 16 keys by
+// three shuffles, the sum per lane until the end); P^T, moved by four
+// shuffles into the B-operand layout, then gives O^T += V^T P^T, 16 mma of
+// 16 head-dim rows (ldmatrix.trans of V).  A block's keys past the range
+// score -1e30; the box's rows there are real keys or TMA's zeros, never
+// stale, so P = 0 meets finite values.  No CTA barrier until the end.
+constexpr int TC_KB = 16;                     // keys per block
+constexpr int TC_PANEL = TC_KB * 128;         // 16 rows x 64 columns
+constexpr int TC_STAGE = 8 * TC_PANEL;        // K and V of one block
+
+template <int GC>
+struct TcCfg {
+  static constexpr int WS = 2 * GC + GC * 256;  // a warp's partial (floats)
+  static constexpr int RING = NW * TC_STAGE;    // one stage a warp
+  static_assert(NW * WS * 4 <= RING, "the warps' partials fit the ring");
+  // from the base rounded up to 1024 (the swizzle atom): the ring, the
+  // warps' mbarriers, the combine's weights and l, 1 / l, the flag
+  static constexpr int BAR_OFF = RING;
+  static constexpr int WTS_OFF = BAR_OFF + 8 * NW;
+  static constexpr int LS_OFF = WTS_OFF + MAX_GROUP * GC * 4;
+  static constexpr int INV_OFF = LS_OFF + MAX_GROUP * GC * 4;
+  static constexpr int FLAG_OFF = INV_OFF + GC * 4;
+  static constexpr int SMEM = 1024 + FLAG_OFF + 16;
+};
+
+template <int GC>
+__global__ void __launch_bounds__(NT, 1)
+    dec_kernel_tc(const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  const __nv_bfloat16* __restrict__ q,
+                  const int* __restrict__ valid_len,
+                  __nv_bfloat16* __restrict__ o, float* __restrict__ scratch,
+                  int L, int Hq, int Hkv, int chunk, int group,
+                  float scale_log2) {
+  using C = TcCfg<GC>;
+  constexpr int HD = 256;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const uint32_t raw = hp::smem_u32(smem);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* basep = smem + (base - raw);
+  float* wts = reinterpret_cast<float*>(basep + C::WTS_OFF);
+  float* ls = reinterpret_cast<float*>(basep + C::LS_OFF);
+  float* inv = reinterpret_cast<float*>(basep + C::INV_OFF);
+  int* flag = reinterpret_cast<int*>(basep + C::FLAG_OFF);
+
+  const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int G = Hq / Hkv;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;   // fragment row group, column pair
+  const long qo_off = ((long)b * Hq + (long)hk * G) * HD;
+  const int n = max(0, min(valid_len[b], L));      // keys that attend
+  const int k_begin = split * chunk;
+  const int k_end = min(k_begin + chunk, n);
+  const int nblk = k_end > k_begin ? (k_end - k_begin + TC_KB - 1) / TC_KB : 0;
+
+  const uint32_t sK = base + warp * TC_STAGE, sV = sK + 4 * TC_PANEL;
+  const uint32_t bar = base + C::BAR_OFF + 8 * warp;
+  hp::mbar_init(bar, 1, lane == 0);
+  hp::fence_mbar_init();
+  __syncthreads();
+  // block j of the range into this warp's stage; lane 0 issues, predicated
+  auto issue = [&](int j) {
+    const int k0 = k_begin + j * TC_KB;
+    const bool on = lane == 0;
+    hp::mbar_expect_tx(bar, TC_STAGE, on);
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      hp::tma_load4(sK + p * TC_PANEL, &tk, 64 * p, hk, k0, b, bar, on);
+      hp::tma_load4(sV + p * TC_PANEL, &tv, 64 * p, hk, k0, b, bar, on);
+    }
+  };
+  if (warp < nblk) issue(warp);
+
+  // q^T as the B operand of S^T: k-step st holds head dims 16st..16st+15;
+  // column g is query head g (zero past G)
+  uint32_t qf[16][2];
+#pragma unroll
+  for (int st = 0; st < 16; ++st) {
+    const __nv_bfloat16* qp = q + qo_off + (long)g * HD + 16 * st + 2 * t4;
+    qf[st][0] = g < G ? *reinterpret_cast<const uint32_t*>(qp) : 0u;
+    qf[st][1] = g < G ? *reinterpret_cast<const uint32_t*>(qp + 8) : 0u;
+  }
+  // O^T: rows 16mb + g (+ 8) of the head dim, columns (query heads) 2t4, +1
+  float acc[16][4];
+#pragma unroll
+  for (int mb = 0; mb < 16; ++mb)
+    acc[mb][0] = acc[mb][1] = acc[mb][2] = acc[mb][3] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};  // heads 2t4, 2t4 + 1
+  // ldmatrix: lane names row (lane & 7) of matrix lane >> 3
+  const int mi = lane >> 3, rr = lane & 7;
+
+  int use = 0;
+  for (int j = warp; j < nblk; j += NW, ++use) {
+    hp::mbar_wait(bar, use & 1);
+    const int k0 = k_begin + j * TC_KB;
+    // S^T (16 keys x 8 heads): A = K (keys x dims) from the panels
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int st = 0; st < 16; ++st) {
+      const int row = rr + 8 * (mi & 1), chunk16 = 2 * (st & 3) + (mi >> 1);
+      uint32_t a[4];
+      hp::ldsm_x4(a, sK + (st >> 2) * TC_PANEL + row * 128 +
+                         ((chunk16 ^ (row & 7)) << 4));
+      hp::mma_bf16(s, a, qf[st][0], qf[st][1]);
+    }
+    // s[0], s[1]: key g, heads 2t4, +1; s[2], s[3]: key g + 8
+    if (k0 + g >= k_end) s[0] = s[1] = NEG_INF;
+    if (k0 + g + 8 >= k_end) s[2] = s[3] = NEG_INF;
+    float alpha[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float mx = fmaxf(s[e], s[2 + e]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+      const float mn = fmaxf(m[e], mx);
+      alpha[e] = fast_exp2((m[e] - mn) * scale_log2);
+      m[e] = mn;
+      // scores stay unscaled until the exponent, as in the flash kernel
+      s[e] = fast_exp2((s[e] - mn) * scale_log2);
+      s[2 + e] = fast_exp2((s[2 + e] - mn) * scale_log2);
+      l[e] = l[e] * alpha[e] + (s[e] + s[2 + e]);   // per lane until the end
+    }
+    // P^T as the B operand: lane (g, t4) takes P^T rows 2t4, +1, +8, +9 of
+    // column g, held by lanes 8t4 + g/2 (rows 2t4, +8) and + 4 (rows
+    // 2t4 + 1, +9), at parity g & 1
+    const uint32_t x0 = hp::pack_bf16(s[0], s[2]);
+    const uint32_t x1 = hp::pack_bf16(s[1], s[3]);
+    const int src = 8 * t4 + (g >> 1);
+    const uint32_t a0 = __shfl_sync(0xffffffffu, x0, src);
+    const uint32_t a1 = __shfl_sync(0xffffffffu, x1, src);
+    const uint32_t c0 = __shfl_sync(0xffffffffu, x0, src + 4);
+    const uint32_t c1 = __shfl_sync(0xffffffffu, x1, src + 4);
+    const uint32_t u = (g & 1) ? a1 : a0, w = (g & 1) ? c1 : c0;
+    const uint32_t pb0 = __byte_perm(u, w, 0x5410);   // rows 2t4, 2t4 + 1
+    const uint32_t pb1 = __byte_perm(u, w, 0x7632);   // rows + 8, + 9
+    // O^T += V^T P^T: A = V^T (dims x keys), ldmatrix.trans of V's rows
+#pragma unroll
+    for (int mb = 0; mb < 16; ++mb) {
+      acc[mb][0] *= alpha[0];
+      acc[mb][1] *= alpha[1];
+      acc[mb][2] *= alpha[0];
+      acc[mb][3] *= alpha[1];
+      const int key = rr + 8 * (mi >> 1), chunk16 = 2 * (mb & 3) + (mi & 1);
+      uint32_t a[4];
+      hp::ldsm_x4_trans(a, sV + (mb >> 2) * TC_PANEL + key * 128 +
+                               ((chunk16 ^ (key & 7)) << 4));
+      hp::mma_bf16(acc[mb], a, pb0, pb1);
+    }
+    __syncwarp();                      // every lane has read the stage
+    if (j + NW < nblk) issue(j + NW);
+  }
+  __syncthreads();                     // the ring is free for the partials
+
+  // this warp's partial: m (in the log2 units the combine takes), l
+  // (summed over the lanes of a column) and O
+  float* wp = reinterpret_cast<float*>(basep) + warp * C::WS;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    l[e] += __shfl_xor_sync(0xffffffffu, l[e], 4);
+    l[e] += __shfl_xor_sync(0xffffffffu, l[e], 8);
+    l[e] += __shfl_xor_sync(0xffffffffu, l[e], 16);
+    const int qh = 2 * t4 + e;
+    if (qh < G) {
+      if (g == 0) {
+        wp[qh] = m[e] * scale_log2;
+        wp[GC + qh] = l[e];
+      }
+#pragma unroll
+      for (int mb = 0; mb < 16; ++mb) {
+        wp[2 * GC + qh * HD + 16 * mb + g] = acc[mb][e];
+        wp[2 * GC + qh * HD + 16 * mb + g + 8] = acc[mb][2 + e];
+      }
     }
   }
-  cluster.sync();                      // keep every partial alive until read
+  __syncthreads();
+  ticket_combine<__nv_bfloat16, HD, GC>(reinterpret_cast<const float*>(basep),
+                                        scratch, o + qo_off, wts, ls, inv,
+                                        flag, G, group, tid);
+}
+
+// the ticket combine's bounds: its groups and their number
+inline bool tickets_fit(float* scratch, int n_split, int group) {
+  const int groups = (n_split + group - 1) / group;
+  return scratch && group >= 1 && group <= MAX_GROUP && groups <= MAX_GROUP;
+}
+
+// zero the ticket combine's tickets, after its partials in scratch, on the
+// launch's stream
+template <int HD>
+cudaError_t zero_tickets(float* scratch, int B, int Hkv, int G, int n_split,
+                         int group, cudaStream_t stream) {
+  const long bhs = (long)B * Hkv, groups = (n_split + group - 1) / group;
+  return cudaMemsetAsync(scratch + bhs * (n_split + groups) * G * (HD + 2),
+                         0, bhs * (groups + 1) * sizeof(unsigned int),
+                         stream);
 }
 
 template <typename T, int HD, int GC>
 int launch(const void* q, const void* k, const void* v, const int* vlen,
-           void* o, int B, int L, int Hq, int Hkv, int n_split, int chunk,
-           cudaStream_t stream) {
+           void* o, float* scratch, int B, int L, int Hq, int Hkv,
+           int n_split, int chunk, int group, cudaStream_t stream) {
   // the capacity below GC; GC is compiled only where a G past it can meet
   // G * hd <= 1024 (the wrapper's MAX_GROUP_WIDTH)
   constexpr int PREV = GC == 1 ? 0 : GC == 4 ? 1 : GC == 16 ? 4 : 16;
   if constexpr (PREV >= 1024 / HD) {
     return -1;
   } else {
-    const int bytes = Cfg<T, HD, GC>::SMEM;
-    auto kern = dec_kernel<T, HD, GC>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return (int)err;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(n_split, Hkv, B);
-    cfg.blockDim = dim3(NT);
-    cfg.dynamicSmemBytes = bytes;
-    cfg.stream = stream;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = n_split;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(q),
-                             static_cast<const T*>(k),
-                             static_cast<const T*>(v), vlen,
-                             static_cast<T*>(o), L, Hq, Hkv, chunk,
-                             (float)(LOG2E / std::sqrt((double)HD)));
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaGetLastError();
+    if (group == 0 ? n_split > MAX_CLUSTER
+                   : !tickets_fit(scratch, n_split, group))
+      return -1;
+    if (group > 0) {
+      const cudaError_t err =
+          zero_tickets<HD>(scratch, B, Hkv, Hq / Hkv, n_split, group, stream);
+      if (err != cudaSuccess) return (int)err;
+    }
+    const float scale_log2 = (float)(LOG2E / std::sqrt((double)HD));
+    if constexpr (HD == 256 && sizeof(T) == 2) {
+      if (group == 0) return -1;       // dec_kernel_tc combines by tickets
+      CUtensorMap tk, tv;
+      if (!hp::make_map_bshd(&tk, k, HD, Hkv, L, B, TC_KB) ||
+          !hp::make_map_bshd(&tv, v, HD, Hkv, L, B, TC_KB))
+        return -2;
+      const int bytes = TcCfg<GC>::SMEM;
+      cudaError_t err = cudaFuncSetAttribute(
+          dec_kernel_tc<GC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          bytes);
+      if (err != cudaSuccess) return (int)err;
+      dec_kernel_tc<GC><<<dim3(n_split, Hkv, B), NT, bytes, stream>>>(
+          tk, tv, static_cast<const __nv_bfloat16*>(q), vlen,
+          static_cast<__nv_bfloat16*>(o), scratch, L, Hq, Hkv, chunk, group,
+          scale_log2);
+      return (int)cudaGetLastError();
+    } else {
+      const int bytes = Cfg<T, HD, GC>::SMEM;
+      auto kern = dec_kernel<T, HD, GC>;
+      cudaError_t err = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      if (err != cudaSuccess) return (int)err;
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3(n_split, Hkv, B);
+      cfg.blockDim = dim3(NT);
+      cfg.dynamicSmemBytes = bytes;
+      cfg.stream = stream;
+      cudaLaunchAttribute attr[1];
+      attr[0].id = cudaLaunchAttributeClusterDimension;
+      attr[0].val.clusterDim.x = n_split;
+      attr[0].val.clusterDim.y = 1;
+      attr[0].val.clusterDim.z = 1;
+      cfg.attrs = attr;
+      cfg.numAttrs = group == 0 ? 1 : 0;
+      err = cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(q),
+                               static_cast<const T*>(k),
+                               static_cast<const T*>(v), vlen,
+                               static_cast<T*>(o), scratch, L, Hq, Hkv, chunk,
+                               group, scale_log2);
+      if (err != cudaSuccess) return (int)err;
+      return (int)cudaGetLastError();
+    }
   }
 }
 
 template <typename T, int HD>
 int dispatch_g(int G, const void* q, const void* k, const void* v,
-               const int* vlen, void* o, int B, int L, int Hq, int Hkv,
-               int n_split, int chunk, cudaStream_t s) {
-  if (G <= 1)
-    return launch<T, HD, 1>(q, k, v, vlen, o, B, L, Hq, Hkv, n_split, chunk, s);
-  if (G <= 4)
-    return launch<T, HD, 4>(q, k, v, vlen, o, B, L, Hq, Hkv, n_split, chunk, s);
-  if (G <= 16)
-    return launch<T, HD, 16>(q, k, v, vlen, o, B, L, Hq, Hkv, n_split, chunk,
-                             s);
-  if (G <= 32)
-    return launch<T, HD, 32>(q, k, v, vlen, o, B, L, Hq, Hkv, n_split, chunk,
-                             s);
+               const int* vlen, void* o, float* scratch, int B, int L,
+               int Hq, int Hkv, int n_split, int chunk, int group,
+               cudaStream_t s) {
+#define REPRO_DEC_G(GC)                                                     \
+  if (G <= GC)                                                              \
+    return launch<T, HD, GC>(q, k, v, vlen, o, scratch, B, L, Hq, Hkv,      \
+                             n_split, chunk, group, s);
+  REPRO_DEC_G(1)
+  REPRO_DEC_G(4)
+  REPRO_DEC_G(16)
+  REPRO_DEC_G(32)
+#undef REPRO_DEC_G
   return -1;
 }
 
 template <typename T>
 int dispatch_hd(int hd, const void* q, const void* k, const void* v,
-                const int* vlen, void* o, int B, int L, int Hq, int Hkv,
-                int n_split, int chunk, cudaStream_t s) {
+                const int* vlen, void* o, float* scratch, int B, int L,
+                int Hq, int Hkv, int n_split, int chunk, int group,
+                cudaStream_t s) {
   const int G = Hq / Hkv;
+#define REPRO_DEC_HD(HD)                                                    \
+  case HD:                                                                  \
+    return dispatch_g<T, HD>(G, q, k, v, vlen, o, scratch, B, L, Hq, Hkv,   \
+                             n_split, chunk, group, s);
   switch (hd) {
-    case 32: return dispatch_g<T, 32>(G, q, k, v, vlen, o, B, L, Hq, Hkv, n_split, chunk, s);
-    case 64: return dispatch_g<T, 64>(G, q, k, v, vlen, o, B, L, Hq, Hkv, n_split, chunk, s);
-    case 72: return dispatch_g<T, 72>(G, q, k, v, vlen, o, B, L, Hq, Hkv, n_split, chunk, s);
-    case 96: return dispatch_g<T, 96>(G, q, k, v, vlen, o, B, L, Hq, Hkv, n_split, chunk, s);
-    case 128: return dispatch_g<T, 128>(G, q, k, v, vlen, o, B, L, Hq, Hkv, n_split, chunk, s);
-    case 256: return dispatch_g<T, 256>(G, q, k, v, vlen, o, B, L, Hq, Hkv, n_split, chunk, s);
+    REPRO_DEC_HD(32)
+    REPRO_DEC_HD(64)
+    REPRO_DEC_HD(72)
+    REPRO_DEC_HD(96)
+    REPRO_DEC_HD(128)
+    REPRO_DEC_HD(256)
     default: return -1;
   }
+#undef REPRO_DEC_HD
 }
 
 }  // namespace
 
 // C interface for ctypes.  Returns 0 on success, the cudaError_t of a
-// refused launch, or -1 for a head dim or group the kernel was not built
-// for.  n_split (1..8) CTAs of `chunk` keys each per (b, KV head), launched
-// as one cluster: the wrapper's split_plan.
+// refused launch, -1 for a head dim, group or plan the kernel was not built
+// for, or -2 if a TMA tensor map could not be made.  n_split CTAs of `chunk` keys each per (b, KV head): the
+// wrapper's split_plan; group: 0 to combine over one cluster of the
+// n_split CTAs (hd <= 128, n_split <= 8), else the ticket combine's ranges
+// per group (split_groups), with `scratch` its float32 partials and then
+// its B * Hkv * (groups + 1) tickets (zeroed here, on `stream`).
 extern "C" int repro_decode_attention(const void* q, const void* k,
                                       const void* v, const void* valid_len,
-                                      void* o, int is_bf16, int B, int L,
-                                      int Hq, int Hkv, int hd, int n_split,
-                                      int chunk, void* stream) {
+                                      void* o, void* scratch, int is_bf16,
+                                      int B, int L, int Hq, int Hkv, int hd,
+                                      int n_split, int chunk, int group,
+                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* vlen = static_cast<const int*>(valid_len);
-  if (n_split < 1 || n_split > 8 || chunk < 1) return -1;
+  float* part = static_cast<float*>(scratch);
+  if (n_split < 1 || chunk < 1 || group < 0) return -1;
   if (is_bf16)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, vlen, o, B, L, Hq, Hkv,
-                                      n_split, chunk, s);
-  return dispatch_hd<float>(hd, q, k, v, vlen, o, B, L, Hq, Hkv, n_split,
-                            chunk, s);
+    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, vlen, o, part, B, L, Hq,
+                                      Hkv, n_split, chunk, group, s);
+  return dispatch_hd<float>(hd, q, k, v, vlen, o, part, B, L, Hq, Hkv,
+                            n_split, chunk, group, s);
 }

@@ -15,35 +15,47 @@
 //
 // Two kernels, picked by dtype in the C launcher below:
 //
-// * bf16, fa_kernel_wgmma: both products on the tensor cores.  A CTA of two
-//   warpgroups owns 128 q rows (64 each).  S = Q K^T is a wgmma m64n64k16
-//   with Q and K in shared memory, both K-major; P V is a wgmma m64nDk16
-//   with P in registers (the S accumulator fragment converted to bf16 lines
-//   up with the A-operand fragment, as in FlashAttention-3) and V in shared
-//   memory, MN-major (transpose bit).  Tiles sit in shared memory as bf16 in
-//   64-column (128-byte) panels with the 128-byte swizzle the descriptors
-//   name; hd 32/72/96 are padded with zeros to 64/128 columns.  At hd 256
-//   (gemma3) a 128-row CTA would need 64 KB of Q and 64 KB of K/V a stage
-//   and 128 output registers a thread, so that instance splits the output
-//   instead: its two warpgroups share one 64-row q tile, each computes the
-//   whole S = Q K^T (the softmax needs every column of a row) and owns 128
-//   of the 256 output columns of P V; 32 KB of Q and a three-stage ring of
-//   64 KB stages fit the 227 KB a CTA may have.  Loads are
-//   TMA copies: one 4-D tensor map per operand over the (B,S,H,hd) layout
-//   with its own strides, whose zero fill gives the rows past Sk and the
-//   padding columns.  Thread 0 issues them by predicated instructions that
-//   its whole warp runs (hopper.cuh), never behind a branch that splits a
-//   warp ahead of a wgmma.  K/V tiles of 64 keys land in a four-stage ring,
-//   each stage completing on its mbarrier, so the next two tiles' loads
-//   overlap the current tile's products, with one CTA barrier per tile.
-//   Each iteration issues S of tile j and P V of tile j - 1 together and
-//   runs the softmax of tile j while P V is on the tensor cores
-//   (FlashAttention-3's intra-warpgroup overlap).  The online
+// * bf16, fa_kernel_wgmma: both products on the tensor cores.  S = Q K^T
+//   is a wgmma m64n64k16 with Q and K in shared memory, both K-major; P V
+//   is a wgmma m64nNk16 with P in registers (the S accumulator fragment
+//   converted to bf16 lines up with the A-operand fragment, as in
+//   FlashAttention-3) and V in shared memory, MN-major (transpose bit).
+//   Each consumer warpgroup owns 64 q rows and every output column of
+//   them, so it computes S only for its own rows: QK^T runs once per (q
+//   row, key tile).  Tiles sit in shared memory as bf16 in 64-column
+//   (128-byte) panels with the 128-byte swizzle the descriptors name;
+//   hd 32/72/96 are padded with zeros to 64/128 columns.  Loads are TMA
+//   copies: one 4-D tensor map per operand over the (B,S,H,hd) layout with
+//   its own strides, whose zero fill gives the rows past Sk and the padding
+//   columns.  Thread 0 issues them by predicated instructions that its
+//   whole warp runs (hopper.cuh), never behind a branch that splits a warp
+//   ahead of a wgmma.  Each iteration issues S of tile j and P V of tile
+//   j - 1 together and runs the softmax of tile j while P V is on the
+//   tensor cores (FlashAttention-3's intra-warpgroup overlap).  The online
 //   softmax runs on the accumulator fragments (quad shuffles).  Dead tiles
 //   are skipped with _fa_kernel's tile test; only tiles that straddle the
 //   diagonal, the window edge or Sk are masked.  q tiles launch
 //   heaviest-first (the q-tile index is the slowest grid dimension,
-//   reversed), so the causal tail is short.
+//   reversed), so the causal tail is short.  Two layouts:
+//   - hd <= 128 (fa_narrow): a CTA of two warpgroups owns 128 q rows; K/V
+//     tiles of 64 keys land in one four-stage ring, each stage completing
+//     on its mbarrier, so the next two tiles' loads overlap the current
+//     tile's products, with one CTA barrier per tile.
+//   - hd 256 (fa_hd256, gemma3): FlashAttention-3's hd 256 layout without
+//     its producer warp.  Each warpgroup holds the 64 x 256 f32 output
+//     accumulator (128 registers a thread) beside S (32) and P (16): 202
+//     registers, under the 255 that one CTA of 256 threads an SM leaves,
+//     so no setmaxnreg is needed.  K and V have rings of their own, two
+//     stages each: Q (32 KB a warpgroup) + 2 x (32 + 32) KB fits the 227
+//     KB a CTA may have.  At the top of tile j, after one CTA barrier,
+//     thread 0 refills the K stage that tile j - 1 left (with tile j + 1)
+//     and the V stage that tile j - 2 left (with tile j), so every load has
+//     one whole tile's products to land in.  (A producer warpgroup with
+//     setmaxnreg and "empty" barriers in place of the CTA barrier measured
+//     no faster at 128 rows and slower at 64, and was not kept.)  The
+//     CTA is 128 q rows (two warpgroups) or 64 (one): the wrapper takes 64
+//     where the 64-row grid fits one CTA per SM (batch 1), 128 elsewhere
+//     (kernels/flash_attention.py, flash_block_q).
 // * float32, fa_kernel_f32: the CUDA-core kernel of the port's first
 //   version.  Full-f32 products are what the f32 tolerance needs (TF32 would
 //   not meet it); f32 is on no serving path.
@@ -260,18 +272,24 @@ template <int HD>
 struct Cfg {
   // padded to whole panels
   static constexpr int HDP = HD <= 64 ? 64 : HD <= 128 ? 128 : 256;
-  // SPLIT: the warpgroups share 64 q rows and split the output columns
-  static constexpr bool SPLIT = HDP > 128;
-  static constexpr int ROWS = SPLIT ? BQ / 2 : BQ;   // q rows per CTA
-  static constexpr int OUT = SPLIT ? HDP / 2 : HDP;  // a warpgroup's columns
-  static constexpr int STAGES = SPLIT ? 3 : 4;       // K/V ring depth
+  static constexpr int STAGES = 4;          // K/V ring depth
   static constexpr int AHEAD = STAGES - 2;  // tiles loading while one is used
-  static constexpr int Q_BYTES = ROWS * HDP * 2;
+  static constexpr int Q_BYTES = BQ * HDP * 2;
   static constexpr int KV_BYTES = BK * HDP * 2;
   static constexpr int NP = HDP / 64;              // 64-column panels
   // +1024: the base is rounded up to the swizzle atom; then the barriers
   static constexpr int SMEM = Q_BYTES + STAGES * 2 * KV_BYTES + 1024 +
                               8 * (STAGES + 1);
+};
+
+// hd 256: NWG warpgroups of 64 q rows; K and V in two-stage rings of their
+// own; barriers: K full x 2, V full x 2, Q
+template <int NWG>
+struct Cfg256 {
+  static constexpr int ROWS = 64 * NWG;
+  static constexpr int Q_BYTES = ROWS * 256 * 2;
+  static constexpr int T_BYTES = BK * 256 * 2;     // one K or V tile
+  static constexpr int SMEM = Q_BYTES + 4 * T_BYTES + 1024 + 8 * 5;
 };
 
 // O += P V over one tile: P's fragment for keys 16kk..16kk+15 is
@@ -304,22 +322,111 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+// The live K/V tiles of a CTA whose q rows start at first_q: [lo, hi), the
+// tile-skip test of _fa_kernel
+struct TileRange {
+  int lo, hi;
+  __device__ TileRange(int first_q, int rows, int Sk, int causal,
+                       int window) {
+    const int last_q = first_q + rows - 1;
+    const int nk = (Sk + BK - 1) / BK;
+    hi = nk;
+    if (causal) hi = last_q < 0 ? 0 : min(nk, last_q / BK + 1);
+    lo = 0;
+    if (window > 0)
+      while (lo < hi && first_q - (lo * BK + BK - 1) >= window) ++lo;
+  }
+};
+
+// The online softmax of one 64 x 64 score tile s (accumulator fragment) of
+// the rows qp0 / qp1 = qp0 + 8: masks where the tile straddles Sk, the
+// diagonal or the window, updates (m, l) and leaves P = exp2((s - m) *
+// scale) in s; returns the factors a0 / a1 by which O's rows rescale.
+// Scores stay unscaled until the exponent (the scale is positive, so the
+// row max commutes with it).
+__device__ __forceinline__ void online_softmax(
+    float (&s)[32], int first_k, int first_q, int last_q, int qp0, int Sk,
+    int causal, int window, float scale_log2, int lane, float& m0, float& m1,
+    float& l0, float& l1, float& a0, float& a1) {
+  const int qp1 = qp0 + 8;
+  const bool edge = first_k + BK > Sk ||
+                    (causal && first_k + BK - 1 > first_q) ||
+                    (window > 0 && last_q - first_k >= window);
+  if (edge) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int kp = first_k + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+      const int qp = (i & 2) ? qp1 : qp0;
+      bool live = kp < Sk;
+      if (causal) live = live && qp >= kp;
+      if (window > 0) live = live && qp - kp < window;
+      if (!live) s[i] = NEG_INF;
+    }
+  }
+  // row r: registers i with (i & 2) == 0; row r + 8: the others.  Four
+  // partial maxima / sums a row keep the dependent chains short.
+  float mx[2][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    mx[0][j] = fmaxf(s[8 * j], s[8 * j + 1]);
+    mx[1][j] = fmaxf(s[8 * j + 2], s[8 * j + 3]);
+    mx[0][j] = fmaxf(mx[0][j], fmaxf(s[8 * j + 4], s[8 * j + 5]));
+    mx[1][j] = fmaxf(mx[1][j], fmaxf(s[8 * j + 6], s[8 * j + 7]));
+  }
+  const float mn0 = fmaxf(m0, quad_max(fmaxf(fmaxf(mx[0][0], mx[0][1]),
+                                             fmaxf(mx[0][2], mx[0][3]))));
+  const float mn1 = fmaxf(m1, quad_max(fmaxf(fmaxf(mx[1][0], mx[1][1]),
+                                             fmaxf(mx[1][2], mx[1][3]))));
+  a0 = fast_exp2((m0 - mn0) * scale_log2);
+  a1 = fast_exp2((m1 - mn1) * scale_log2);
+  m0 = mn0;
+  m1 = mn1;
+  // (s - m) * scale, not an fma: a masked score minus a masked max is
+  // exactly 0, so a row whose processed keys are all masked averages them
+  float rs[2][4] = {};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const float p = fast_exp2((s[i] - ((i & 2) ? mn1 : mn0)) * scale_log2);
+    s[i] = p;
+    rs[(i >> 1) & 1][i >> 3] += p;
+  }
+  const float rs0 = (rs[0][0] + rs[0][1]) + (rs[0][2] + rs[0][3]);
+  const float rs1 = (rs[1][0] + rs[1][1]) + (rs[1][2] + rs[1][3]);
+  l0 = l0 * a0 + rs0;              // per-thread partial; quad-summed at end
+  l1 = l1 * a1 + rs1;
+}
+
+// O / l of one warpgroup's 64 rows (accumulator fragments of N columns
+// starting at col0) into shared memory at `so` (row 0 of its rows, panels
+// `panel` bytes apart), in the swizzled panel layout of the tensor maps
+template <int N>
+__device__ __forceinline__ void stage_out(const float (&acc)[N], int col0,
+                                          uint32_t so, int panel, float d0,
+                                          float d1, int warp, int lane) {
+#pragma unroll
+  for (int i = 0; i < N; i += 2) {
+    const int r = warp * 16 + (lane >> 2) + ((i & 2) ? 8 : 0);
+    const int col = col0 + 8 * (i >> 2) + 2 * (lane & 3);
+    const float dn = (i & 2) ? d1 : d0;
+    const uint32_t addr = so + (col >> 6) * panel + r * 128 +
+                          ((((col & 63) >> 3) ^ (r & 7)) << 4) + (col & 7) * 2;
+    asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr),
+                 "r"(pack_bf16(acc[i] * dn, acc[i + 1] * dn))
+                 : "memory");
+  }
+}
+
 // Accumulator fragment of a 64xN wgmma (f32): thread t of the warpgroup,
 // warp w = t/32, lane; register i holds row 16w + lane/4 + 8*((i>>1)&1),
 // column 8*(i/4) + 2*(lane%4) + (i&1).
-// Two CTAs an SM where the 128-register budget holds both accumulators
-// (hd <= 64); one at hd 72..256, whose O accumulator alone takes 64.
+// hd <= 128: a CTA of two warpgroups, 128 q rows.
 template <int HD>
-__global__ void __launch_bounds__(NT, HD <= 64 ? 2 : 1)
-    fa_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
-                    const __grid_constant__ CUtensorMap tk,
-                    const __grid_constant__ CUtensorMap tv,
-                    const __grid_constant__ CUtensorMap to, int Sq, int Sk,
-                    int Hq, int Hkv, int causal, int window,
-                    float scale_log2) {
+__device__ __forceinline__ void fa_narrow(
+    const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
+    const CUtensorMap* to, int Sq, int Sk, int Hq, int Hkv, int causal,
+    int window, float scale_log2) {
   using C = Cfg<HD>;
   constexpr int STAGES = C::STAGES, AHEAD = C::AHEAD;
-  constexpr int ROWS = C::ROWS;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base;
@@ -331,20 +438,15 @@ __global__ void __launch_bounds__(NT, HD <= 64 ? 2 : 1)
   const int iq = gridDim.z - 1 - blockIdx.z;           // heaviest first
   const int hk = h / (Hq / Hkv);
   const int tid = threadIdx.x;
-  const int wgi = tid >> 7;       // warpgroup: rows 64*wgi, or columns
+  const int wgi = tid >> 7;       // warpgroup: rows 64*wgi
   const int warp = (tid >> 5) & 3, lane = tid & 31;
-  const int wrow = C::SPLIT ? 0 : wgi * 64;           // its first q row
+  const int wrow = wgi * 64;      // its first q row
 
-  const int q0 = iq * ROWS;
+  const int q0 = iq * BQ;
   const int first_q = q0 + (Sk - Sq);
-  const int last_q = first_q + ROWS - 1;
-  const int nk = (Sk + BK - 1) / BK;
-  // the tile-skip test of _fa_kernel: live tiles are [ik_lo, ik_hi)
-  int ik_hi = nk;
-  if (causal) ik_hi = last_q < 0 ? 0 : min(nk, last_q / BK + 1);
-  int ik_lo = 0;
-  if (window > 0)
-    while (ik_lo < ik_hi && first_q - (ik_lo * BK + BK - 1) >= window) ++ik_lo;
+  const int last_q = first_q + BQ - 1;
+  const TileRange live(first_q, BQ, Sk, causal, window);
+  const int ik_lo = live.lo, ik_hi = live.hi;
 
   // Thread 0 issues every load: Q once, then each K/V tile into its stage,
   // completing on that stage's barrier.  The helpers run on whole warps and
@@ -357,9 +459,9 @@ __global__ void __launch_bounds__(NT, HD <= 64 ? 2 : 1)
     mbar_expect_tx(bar, 2 * C::KV_BYTES, on);
 #pragma unroll
     for (int p = 0; p < C::NP; ++p) {
-      tma_load4(sK + stage * C::KV_BYTES + p * (BK * 128), &tk, 64 * p, hk,
+      tma_load4(sK + stage * C::KV_BYTES + p * (BK * 128), tk, 64 * p, hk,
                 ik * BK, b, bar, on);
-      tma_load4(sV + stage * C::KV_BYTES + p * (BK * 128), &tv, 64 * p, hk,
+      tma_load4(sV + stage * C::KV_BYTES + p * (BK * 128), tv, 64 * p, hk,
                 ik * BK, b, bar, on);
     }
   };
@@ -369,17 +471,16 @@ __global__ void __launch_bounds__(NT, HD <= 64 ? 2 : 1)
   mbar_expect_tx(qbar, C::Q_BYTES, lead);
 #pragma unroll
   for (int p = 0; p < C::NP; ++p)
-    tma_load4(sQ + p * (ROWS * 128), &tq, 64 * p, h, q0, b, qbar, lead);
+    tma_load4(sQ + p * (BQ * 128), tq, 64 * p, h, q0, b, qbar, lead);
   for (int t = 0; t < AHEAD && ik_lo + t < ik_hi; ++t)
     load_kv(ik_lo + t, t, lead);
   mbar_wait(qbar, 0);
 
-  float acc[C::OUT / 2];
+  float acc[C::HDP / 2];
 #pragma unroll
-  for (int i = 0; i < C::OUT / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < C::HDP / 2; ++i) acc[i] = 0.f;
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;  // rows r, r+8
   const int qp0 = first_q + wrow + warp * 16 + (lane >> 2);
-  const int qp1 = qp0 + 8;
 
   // Each iteration issues S = Q K^T of tile ik and P V of tile ik - 1
   // together; the softmax of tile ik runs while P V is on the tensor cores
@@ -403,7 +504,7 @@ __global__ void __launch_bounds__(NT, HD <= 64 ? 2 : 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < C::HDP / 16; ++kk) {
-      const uint32_t qa = sQ + (kk >> 2) * (ROWS * 128) + wrow * 128 +
+      const uint32_t qa = sQ + (kk >> 2) * (BQ * 128) + wrow * 128 +
                           (kk & 3) * 32;
       const uint32_t ka = sK + stage * C::KV_BYTES + (kk >> 2) * (BK * 128) +
                           (kk & 3) * 32;
@@ -411,173 +512,246 @@ __global__ void __launch_bounds__(NT, HD <= 64 ? 2 : 1)
                      kk);
     }
     wgmma_commit();
-    // this warpgroup's output panels of V: all, or its half
-    const uint32_t vcol = C::SPLIT ? wgi * (C::OUT / 64) * (BK * 128) : 0;
     if (pv) {
       issue_pv(acc, pk, sV + (stage == 0 ? STAGES - 1 : stage - 1) *
-                                 C::KV_BYTES + vcol);
+                                 C::KV_BYTES);
       wgmma_wait<1>();               // S has landed; P V may still run
     } else {
       wgmma_wait<0>();
     }
-
-    // masks only where the tile straddles Sk, the diagonal or the window;
-    // scores stay unscaled until the exponent (the scale is positive, so
-    // the row max commutes with it)
-    const int first_k = ik * BK;
-    const bool edge = first_k + BK > Sk ||
-                      (causal && first_k + BK - 1 > first_q) ||
-                      (window > 0 && last_q - first_k >= window);
-    if (edge) {
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int kp = first_k + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
-        const int qp = (i & 2) ? qp1 : qp0;
-        bool live = kp < Sk;
-        if (causal) live = live && qp >= kp;
-        if (window > 0) live = live && qp - kp < window;
-        if (!live) s[i] = NEG_INF;
-      }
-    }
-    // row r: registers i with (i & 2) == 0; row r + 8: the others.  Four
-    // partial maxima / sums a row keep the dependent chains short.
-    float mx[2][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      mx[0][j] = fmaxf(s[8 * j], s[8 * j + 1]);
-      mx[1][j] = fmaxf(s[8 * j + 2], s[8 * j + 3]);
-      mx[0][j] = fmaxf(mx[0][j], fmaxf(s[8 * j + 4], s[8 * j + 5]));
-      mx[1][j] = fmaxf(mx[1][j], fmaxf(s[8 * j + 6], s[8 * j + 7]));
-    }
-    const float mn0 = fmaxf(m0, quad_max(fmaxf(fmaxf(mx[0][0], mx[0][1]),
-                                               fmaxf(mx[0][2], mx[0][3]))));
-    const float mn1 = fmaxf(m1, quad_max(fmaxf(fmaxf(mx[1][0], mx[1][1]),
-                                               fmaxf(mx[1][2], mx[1][3]))));
-    const float a0 = fast_exp2((m0 - mn0) * scale_log2);
-    const float a1 = fast_exp2((m1 - mn1) * scale_log2);
-    m0 = mn0;
-    m1 = mn1;
-    // (s - m) * scale, not an fma: a masked score minus a masked max is
-    // exactly 0, so a row whose processed keys are all masked averages them
-    float rs[2][4] = {};
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const float p = fast_exp2((s[i] - ((i & 2) ? mn1 : mn0)) * scale_log2);
-      s[i] = p;
-      rs[(i >> 1) & 1][i >> 3] += p;
-    }
-    const float rs0 = (rs[0][0] + rs[0][1]) + (rs[0][2] + rs[0][3]);
-    const float rs1 = (rs[1][0] + rs[1][1]) + (rs[1][2] + rs[1][3]);
-    l0 = l0 * a0 + rs0;              // per-thread partial; quad-summed at end
-    l1 = l1 * a1 + rs1;
+    float a0, a1;
+    online_softmax(s, ik * BK, first_q, last_q, qp0, Sk, causal, window,
+                   scale_log2, lane, m0, m1, l0, l1, a0, a1);
     wgmma_wait<0>();                 // P V of tile ik - 1 is in acc
 #pragma unroll
-    for (int i = 0; i < C::OUT / 2; ++i) acc[i] *= (i & 2) ? a1 : a0;
+    for (int i = 0; i < C::HDP / 2; ++i) acc[i] *= (i & 2) ? a1 : a0;
     // P's A-operand fragment for keys 16kk..16kk+15 is s[8kk .. 8kk+7]
 #pragma unroll
     for (int i = 0; i < BK / 4; ++i) pk[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
   }
   if (ik_hi > ik_lo) {
     const int last = (ik_hi - 1 - ik_lo) % STAGES;
-    const uint32_t vcol = C::SPLIT ? wgi * (C::OUT / 64) * (BK * 128) : 0;
     wgmma_fence();
-    issue_pv(acc, pk, sV + last * C::KV_BYTES + vcol);
+    issue_pv(acc, pk, sV + last * C::KV_BYTES);
     wgmma_wait<0>();
   }
-  // split: the other warpgroup reads every row of Q until its last S
-  if (C::SPLIT) __syncthreads();
 
-  // O / l into this warpgroup's rows (or columns) of the Q region (its
-  // last S has been read), in the swizzled panel layout of the tensor
-  // maps; then one TMA store a panel, which drops the rows past Sq and the
+  // O / l into this warpgroup's rows of the Q region (its last S has been
+  // read); then one TMA store a panel, which drops the rows past Sq and the
   // columns past hd
   const float d0 = 1.f / fmaxf(quad_sum(l0), 1e-30f);
   const float d1 = 1.f / fmaxf(quad_sum(l1), 1e-30f);
-  const int col0 = C::SPLIT ? wgi * C::OUT : 0;       // its first column
   const uint32_t so = sQ + wrow * 128;
-#pragma unroll
-  for (int i = 0; i < C::OUT / 2; i += 2) {
-    const int r = warp * 16 + (lane >> 2) + ((i & 2) ? 8 : 0);
-    const int col = col0 + 8 * (i >> 2) + 2 * (lane & 3);
-    const float dn = (i & 2) ? d1 : d0;
-    const uint32_t addr = so + (col >> 6) * (ROWS * 128) + r * 128 +
-                          ((((col & 63) >> 3) ^ (r & 7)) << 4) + (col & 7) * 2;
-    asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr),
-                 "r"(pack_bf16(acc[i] * dn, acc[i + 1] * dn))
-                 : "memory");
-  }
+  stage_out(acc, 0, so, BQ * 128, d0, d1, warp, lane);
   fence_async_smem();
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wgi) : "memory");
   const bool wg_lead = (tid & 127) == 0;
 #pragma unroll
-  for (int p = col0 / 64; p < (col0 + C::OUT) / 64; ++p)
-    tma_store4(&to, so + p * (ROWS * 128), 64 * p, h, q0 + wrow, b,
-               wg_lead);
+  for (int p = 0; p < C::NP; ++p)
+    tma_store4(to, so + p * (BQ * 128), 64 * p, h, q0 + wrow, b, wg_lead);
   bulk_commit(wg_lead);
   bulk_wait_read(wg_lead);
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
+// hd 256: NWG warpgroups, each 64 q rows and all 256 output columns (two
+// m64n128 accumulators, 128 registers a thread).  K and V have two-stage
+// rings of their own (header).
+template <int NWG>
+__device__ __forceinline__ void fa_hd256(
+    const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
+    const CUtensorMap* to, int Sq, int Sk, int Hq, int Hkv, int causal,
+    int window, float scale_log2) {
+  using C = Cfg256<NWG>;
+  constexpr int ROWS = C::ROWS, T_BYTES = C::T_BYTES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base;
+  const uint32_t sK = sQ + C::Q_BYTES;                 // stage s at + s*T
+  const uint32_t sV = sK + 2 * T_BYTES;
+  const uint32_t kbar = sV + 2 * T_BYTES, vbar = kbar + 16, qbar = vbar + 16;
 
-// cuTensorMapEncodeTiled, a driver call, through the runtime's entry-point
-// query (the library links no libcuda)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int iq = gridDim.z - 1 - blockIdx.z;           // heaviest first
+  const int hk = h / (Hq / Hkv);
+  const int tid = threadIdx.x;
+  const int wgi = tid >> 7;       // warpgroup: rows 64*wgi
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int wrow = wgi * 64;
+
+  const int q0 = iq * ROWS;
+  const int first_q = q0 + (Sk - Sq);
+  const int last_q = first_q + ROWS - 1;
+  const TileRange live(first_q, ROWS, Sk, causal, window);
+  const int ik_lo = live.lo, ik_hi = live.hi;
+
+  // one K or V tile (four 64-column panels of 64 keys) into `dst`,
+  // completing on `bar`; predicated as in fa_narrow
+  const bool lead = tid == 0;
+  auto load = [&](const CUtensorMap* map, uint32_t dst, uint32_t bar, int ik,
+                  bool on) {
+    mbar_expect_tx(bar, T_BYTES, on);
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+      tma_load4(dst + p * (BK * 128), map, 64 * p, hk, ik * BK, b, bar, on);
+  };
+  for (int i = 0; i < 5; ++i) mbar_init(kbar + 8 * i, 1, lead);
+  fence_mbar_init();
+  __syncthreads();
+  mbar_expect_tx(qbar, C::Q_BYTES, lead);
+#pragma unroll
+  for (int p = 0; p < 4; ++p)
+    tma_load4(sQ + p * (ROWS * 128), tq, 64 * p, h, q0, b, qbar, lead);
+  load(tk, sK, kbar, ik_lo, lead && ik_lo < ik_hi);
+  load(tv, sV, vbar, ik_lo, lead && ik_lo < ik_hi);
+  mbar_wait(qbar, 0);
+
+  float acc[2][64];                  // output columns 0..127, 128..255
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[0][i] = acc[1][i] = 0.f;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;  // rows r, r+8
+  const int qp0 = first_q + wrow + warp * 16 + (lane >> 2);
+  auto pv = [&](const uint32_t (&pk)[BK / 4], uint32_t va) {
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t pa[4] = {pk[4 * kk], pk[4 * kk + 1], pk[4 * kk + 2],
+                              pk[4 * kk + 3]};
+      wgmma_rs<1>(acc[0], pa,
+                  make_desc(va + kk * (16 * 128), BK * 128, 1024));
+      wgmma_rs<1>(acc[1], pa,
+                  make_desc(va + 2 * (BK * 128) + kk * (16 * 128), BK * 128,
+                            1024));
+    }
+    wgmma_commit();
+  };
+
+  // Tile t = ik - ik_lo sits in K stage t & 1 and V stage t & 1.  At the
+  // top of tile t every thread has finished tile t - 1 (S of t - 1, P V of
+  // t - 2): K stage (t + 1) & 1 takes tile t + 1, V stage t & 1 tile t
+  // (tile 0's V came with Q).
+  uint32_t pk[BK / 4];               // P of tile ik - 1, as bf16 pairs
+  float s[32];
+  for (int ik = ik_lo; ik < ik_hi; ++ik) {
+    const int t = ik - ik_lo, st = t & 1;
+    mbar_wait(kbar + 8 * st, (t >> 1) & 1);              // K of tile t
+    if (t > 0) mbar_wait(vbar + 8 * (st ^ 1), ((t - 1) >> 1) & 1);  // V t-1
+    __syncthreads();
+    if (tid < 32) {                  // warp 0 alone, as in fa_narrow
+      load(tk, sK + (st ^ 1) * T_BYTES, kbar + 8 * (st ^ 1), ik + 1,
+           lead && ik + 1 < ik_hi);
+      load(tv, sV + st * T_BYTES, vbar + 8 * st, ik, lead && t > 0);
+    }
+
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 16; ++kk) {
+      const uint32_t qa = sQ + (kk >> 2) * (ROWS * 128) + wrow * 128 +
+                          (kk & 3) * 32;
+      const uint32_t ka = sK + st * T_BYTES + (kk >> 2) * (BK * 128) +
+                          (kk & 3) * 32;
+      wgmma_ss<0, 0>(s, make_desc(qa, 16, 1024), make_desc(ka, 16, 1024),
+                     kk);
+    }
+    wgmma_commit();
+    if (t > 0) {
+      pv(pk, sV + (st ^ 1) * T_BYTES);
+      wgmma_wait<1>();               // S has landed; P V may still run
+    } else {
+      wgmma_wait<0>();
+    }
+    float a0, a1;
+    online_softmax(s, ik * BK, first_q, last_q, qp0, Sk, causal, window,
+                   scale_log2, lane, m0, m1, l0, l1, a0, a1);
+    wgmma_wait<0>();                 // P V of tile ik - 1 is in acc
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      acc[0][i] *= (i & 2) ? a1 : a0;
+      acc[1][i] *= (i & 2) ? a1 : a0;
+    }
+#pragma unroll
+    for (int i = 0; i < BK / 4; ++i) pk[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
   }
-  return fn;
+  if (ik_hi > ik_lo) {
+    const int t = ik_hi - 1 - ik_lo;
+    mbar_wait(vbar + 8 * (t & 1), (t >> 1) & 1);
+    wgmma_fence();
+    pv(pk, sV + (t & 1) * T_BYTES);
+    wgmma_wait<0>();
+  }
+
+  // O / l into this warpgroup's rows of the Q region, then one TMA store a
+  // panel (rows past Sq dropped)
+  const float d0 = 1.f / fmaxf(quad_sum(l0), 1e-30f);
+  const float d1 = 1.f / fmaxf(quad_sum(l1), 1e-30f);
+  const uint32_t so = sQ + wrow * 128;
+  stage_out(acc[0], 0, so, ROWS * 128, d0, d1, warp, lane);
+  stage_out(acc[1], 128, so, ROWS * 128, d0, d1, warp, lane);
+  fence_async_smem();
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wgi) : "memory");
+  const bool wg_lead = (tid & 127) == 0;
+#pragma unroll
+  for (int p = 0; p < 4; ++p)
+    tma_store4(to, so + p * (ROWS * 128), 64 * p, h, q0 + wrow, b, wg_lead);
+  bulk_commit(wg_lead);
+  bulk_wait_read(wg_lead);
 }
 
-// The (B, S, H, hd) tensor as a 4-D map, innermost first, with its own
-// strides; boxes of 64 columns x `rows` rows of one head and batch row,
-// 128-byte swizzle, zeros outside the tensor.
-bool make_map(CUtensorMap* map, const void* ptr, int hd, int H, int S, int B,
-              int rows) {
-  const EncodeTiled enc = encode_tiled();
-  if (!enc) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)H, (cuuint64_t)S,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, (cuuint64_t)H * hd * 2,
-                                 (cuuint64_t)S * H * hd * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+// NWG warpgroups of 64 q rows (2 but at hd 256, where the wrapper picks).
+// Two CTAs an SM where the 128-register budget holds both accumulators
+// (hd <= 64); one at hd 72..256, whose O accumulator alone takes 64 (128
+// at hd 256, under the 255 a thread that one CTA an SM leaves).
+template <int HD, int NWG>
+__global__ void __launch_bounds__(128 * NWG, HD <= 64 ? 2 : 1)
+    fa_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap to, int Sq, int Sk,
+                    int Hq, int Hkv, int causal, int window,
+                    float scale_log2) {
+  if constexpr (HD == 256)
+    fa_hd256<NWG>(&tq, &tk, &tv, &to, Sq, Sk, Hq, Hkv, causal, window,
+                  scale_log2);
+  else
+    fa_narrow<HD>(&tq, &tk, &tv, &to, Sq, Sk, Hq, Hkv, causal, window,
+                  scale_log2);
 }
 
-template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Sk, int Hq, int Hkv, int causal, int window,
-           cudaStream_t stream) {
+template <int HD, int NWG>
+int launch_rows(const void* q, const void* k, const void* v, void* o, int B,
+                int Sq, int Sk, int Hq, int Hkv, int causal, int window,
+                cudaStream_t stream) {
+  constexpr int ROWS = 64 * NWG;
   CUtensorMap tq, tk, tv, to;
-  if (!make_map(&tq, q, HD, Hq, Sq, B, Cfg<HD>::ROWS) ||
-      !make_map(&tk, k, HD, Hkv, Sk, B, BK) ||
-      !make_map(&tv, v, HD, Hkv, Sk, B, BK) ||
-      !make_map(&to, o, HD, Hq, Sq, B, BQ / 2))
+  if (!make_map_bshd(&tq, q, HD, Hq, Sq, B, ROWS) ||
+      !make_map_bshd(&tk, k, HD, Hkv, Sk, B, BK) ||
+      !make_map_bshd(&tv, v, HD, Hkv, Sk, B, BK) ||
+      !make_map_bshd(&to, o, HD, Hq, Sq, B, 64))
     return -2;
-  const int bytes = Cfg<HD>::SMEM;
+  const int bytes = HD == 256 ? Cfg256<NWG>::SMEM : Cfg<HD>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
-      fa_kernel_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fa_kernel_wgmma<HD, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(Hq, B, (Sq + Cfg<HD>::ROWS - 1) / Cfg<HD>::ROWS);
-  fa_kernel_wgmma<HD><<<grid, NT, bytes, stream>>>(
+  const dim3 grid(Hq, B, (Sq + ROWS - 1) / ROWS);
+  fa_kernel_wgmma<HD, NWG><<<grid, 128 * NWG, bytes, stream>>>(
       tq, tk, tv, to, Sq, Sk, Hq, Hkv, causal, window,
       (float)(1.4426950408889634 / std::sqrt((double)HD)));  // log2(e)/sqrt
   return (int)cudaGetLastError();
+}
+
+// block_q: q rows per CTA, 128, or 64 at hd 256
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int Sq, int Sk, int Hq, int Hkv, int causal, int window,
+           int block_q, cudaStream_t stream) {
+  if (block_q == 128)
+    return launch_rows<HD, 2>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal,
+                              window, stream);
+  if constexpr (HD == 256) {
+    if (block_q == 64)
+      return launch_rows<HD, 1>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal,
+                                window, stream);
+  }
+  return -1;
 }
 
 }  // namespace wg
@@ -585,11 +759,11 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 template <bool BF16>
 int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
                 int B, int Sq, int Sk, int Hq, int Hkv, int causal,
-                int window, cudaStream_t s) {
+                int window, int block_q, cudaStream_t s) {
 #define REPRO_FA_CASE(HD)                                                   \
   case HD:                                                                  \
     return BF16 ? wg::launch<HD>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal,    \
-                                 window, s)                                 \
+                                 window, block_q, s)                        \
                 : f32core::launch<HD>(q, k, v, o, B, Sq, Sk, Hq, Hkv,       \
                                       causal, window, s);
   switch (hd) {
@@ -607,18 +781,19 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // C interface for ctypes.  Returns 0 on success, the cudaError_t of a
-// refused launch, -1 for a head dim the kernel was not built for, or -2 if
-// a TMA tensor map could not be made.  The
-// dtype picks the kernel: bf16 -> fa_kernel_wgmma, f32 -> fa_kernel_f32.
+// refused launch, -1 for a head dim or block_q the kernel was not built
+// for, or -2 if a TMA tensor map could not be made.  The dtype picks the
+// kernel: bf16 -> fa_kernel_wgmma, whose CTA holds block_q q rows (128; 64
+// or 128 at hd 256); f32 -> fa_kernel_f32, which ignores block_q.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int is_bf16,
                                      int B, int Sq, int Sk, int Hq, int Hkv,
                                      int hd, int causal, int window,
-                                     void* stream) {
+                                     int block_q, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return dispatch_hd<true>(hd, q, k, v, o, B, Sq, Sk, Hq, Hkv, causal,
-                             window, s);
+                             window, block_q, s);
   return dispatch_hd<false>(hd, q, k, v, o, B, Sq, Sk, Hq, Hkv, causal,
-                            window, s);
+                            window, block_q, s);
 }

@@ -1,5 +1,5 @@
-// Hopper (sm_90a) helpers shared by the bf16 kernels: mbarriers, TMA copies
-// and wgmma, as inline PTX.
+// Hopper (sm_90a) helpers shared by the bf16 kernels: mbarriers, TMA copies,
+// wgmma, ldmatrix and mma.sync, as inline PTX; and the host's tensor maps.
 //
 // One thread issues a CTA's TMA copies, their mbarrier arrivals and the bulk
 // waits, but no branch singles it out: every lane of its warp calls these
@@ -191,10 +191,84 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a,
 }
 #undef REPRO_R8
 
+// -- ldmatrix and mma.sync --------------------------------------------------------
+// four 8x8 bf16 matrices from shared memory: lane i names row i % 8 of
+// matrix i / 8; r[j] holds matrix j's row lane / 4, columns 2 * (lane % 4)
+// and + 1 (.trans: of the transposed matrix)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+// d (16x8 f32) += a (16x16 bf16, row-major fragment) * b (16x8, b0: rows
+// 2*(lane%4) and + 1, b1: rows + 8 and + 9, column lane / 4).  Fragment of
+// d: d[0], d[1] at row lane / 4, columns 2*(lane%4) and + 1; d[2], d[3] at
+// row lane / 4 + 8
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&t);
 }
+
+// -- tensor maps (host) ---------------------------------------------------------
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, a driver call, through the runtime's entry-point
+// query (the library links no libcuda)
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The (B, S, H, hd) tensor as a 4-D map, innermost first, with its own
+// strides; boxes of 64 columns x `rows` rows of one head and batch row,
+// 128-byte swizzle, zeros outside the tensor.
+inline bool make_map_bshd(CUtensorMap* map, const void* ptr, int hd, int H,
+                          int S, int B, int rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (!enc) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)H, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, (cuuint64_t)H * hd * 2,
+                                 (cuuint64_t)S * H * hd * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 
 }  // namespace hopper
 }  // namespace repro

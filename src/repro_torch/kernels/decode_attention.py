@@ -16,6 +16,7 @@ kernel.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Tuple
 
 import torch
@@ -27,26 +28,58 @@ from .ref import PLAIN_DEVICES, decode_attention_ref
 HEAD_DIMS = (32, 64, 72, 96, 128, 256)
 DTYPES = (torch.bfloat16, torch.float32)
 # pointers, then ints, then the stream: the C launcher's parameters
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 MAX_GROUP_WIDTH = 1024      # G * hd: the kernel's per-lane registers
-SPLIT_TILE = 32             # the kernel's keys per tile: splits are multiples
+SPLIT_TILE = 32             # the kernel's keys per tile
 MAX_SPLIT = 8               # CTAs per cluster that every Hopper card takes
-CTAS_PER_SM = 4             # the plan aims at this many CTAs per SM
+CTAS_PER_SM = 4             # a one-cluster plan aims at this many per SM
+MAX_CTAS = 1024             # CTAs per (b, KV head) past one cluster
+MIN_CHUNK = 4 * SPLIT_TILE  # keys per CTA at least, past one cluster
+MAX_GROUP = 32              # partials one ticket combine reads (the kernel's)
+TICKET_HEAD_DIMS = (256,)   # instances that combine by tickets at any plan
 
 
 def split_plan(B: int, Hkv: int, L: int, sm_count: int) -> Tuple[int, int]:
     """How the kernel splits the cache: ``(n_split, chunk)``.  Split ``s`` of
     every (b, KV head) covers keys ``[s * chunk, min((s + 1) * chunk, L))``;
     the ranges are contiguous, cover ``[0, L)`` and are none of them empty.
-    ``chunk`` is a whole number of the kernel's 32-key tiles and
-    ``n_split <= 8`` (one thread-block cluster per (b, KV head)).  The plan
-    aims at ``CTAS_PER_SM`` CTAs per SM over the ``B * Hkv * n_split``
-    CTAs, so that batch 1 fills the card as batch 8 does."""
+
+    Up to ``MAX_SPLIT`` ranges (one thread-block cluster), ``chunk`` a whole
+    number of the kernel's 32-key tiles, aiming at ``CTAS_PER_SM`` CTAs per
+    SM over the ``B * Hkv * n_split`` CTAs, so that batch 1 fills the card
+    as batch 8 does.  Where even one CTA per SM gives each (b, KV head) more
+    than ``MAX_SPLIT`` (one KV head at batch 1: gemma3-1b) and the cache is
+    long enough for more than ``MAX_SPLIT`` ranges of ``MIN_CHUNK`` keys,
+    the cache is cut into ``ceil(L / chunk)`` ranges of ``chunk =
+    max(MIN_CHUNK, ceil(L / (sm_count // (B * Hkv))))`` keys (at most
+    ``MAX_CTAS``): about one CTA per SM in one wave, at least one per SM
+    once ``L > t * (t - 1)`` for ``t = sm_count // (B * Hkv)``.  Such
+    ranges need not be whole tiles; the kernel combines them by tickets
+    (:func:`split_groups`)."""
     tiles = max(1, -(-L // SPLIT_TILE))
     want = -(-CTAS_PER_SM * sm_count // max(1, B * Hkv))
     n = max(1, min(MAX_SPLIT, want, tiles))
     chunk = -(-tiles // n) * SPLIT_TILE
+    one_wave = min(MAX_CTAS, sm_count // max(1, B * Hkv))
+    if one_wave > MAX_SPLIT:
+        wide = max(MIN_CHUNK, -(-L // one_wave))
+        if -(-L // wide) > MAX_SPLIT:
+            chunk = wide
     return max(1, -(-L // chunk)), chunk
+
+
+def split_groups(n_split: int, hd: int) -> int:
+    """How the kernel combines the ``n_split`` partials of a (b, KV head):
+    0 for the cluster combine (the CTAs form one thread-block cluster, rank
+    0 reads the others' partials), which hd <= 128 takes up to
+    ``MAX_SPLIT`` ranges; else the size of the ticket combine's groups of
+    consecutive ranges: all of them where there are at most ``MAX_SPLIT``,
+    else ``ceil(sqrt(n_split))``, so that the last CTA of a group and the
+    last group each read about ``sqrt(n_split)`` partials.  Every sum runs
+    in range order."""
+    if n_split <= MAX_SPLIT:
+        return 0 if hd not in TICKET_HEAD_DIMS else n_split
+    return math.isqrt(n_split - 1) + 1
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -107,18 +140,30 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0:
         return out
     n_split, chunk = split_plan(B, Hkv, L, sm_count(q.device))
+    group = split_groups(n_split, hd)
+    # the ticket combine's partials: one per CTA, then one per group, of
+    # G * (hd + 2) floats (m, l, acc), every slot written before read; then
+    # its tickets, one per group and one per (b, KV head), which the C
+    # launcher zeroes on the stream: each launch counts in its own
+    scratch = None
+    if group:
+        groups = -(-n_split // group)
+        scratch = torch.empty(B * Hkv * ((n_split + groups) * (Hq // Hkv)
+                                         * (hd + 2) + groups + 1),
+                              dtype=torch.float32, device=q.device)
     fn = _build.launcher("decode_attention", _ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  valid_len.data_ptr(), out.data_ptr(),
+                 0 if scratch is None else scratch.data_ptr(),
                  int(q.dtype == torch.bfloat16), B, L, Hq, Hkv, hd, n_split,
-                 chunk, stream)
+                 chunk, group, stream)
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed "
                            f"(error {err}) at q {tuple(q.shape)}, "
                            f"k {tuple(k.shape)}, {q.dtype}, {n_split} "
-                           f"splits of {chunk} keys")
+                           f"splits of {chunk} keys, groups of {group}")
     decode_attention.launches += 1
     return out
 

@@ -22,12 +22,28 @@ import ctypes
 import torch
 
 from . import _build
+from ..device import sm_count
 from .ref import PLAIN_DEVICES, flash_attention_ref
 
 HEAD_DIMS = (32, 64, 72, 96, 128, 256)
 DTYPES = (torch.bfloat16, torch.float32)
 # pointers, then ints, then the stream: the C launcher's parameters
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+# q rows per CTA of the bf16 kernel; at hd 256 the wrapper picks from both
+BLOCK_Q = 128
+BLOCK_Q_HD256 = (64, 128)
+
+
+def flash_block_q(B: int, Sq: int, Hq: int, hd: int, sm_count: int) -> int:
+    """q rows per CTA of the bf16 kernel.  128 (two warpgroups) but at hd
+    256, whose CTA holds one SM: there 64 (one warpgroup) where the 64-row
+    grid of ``B * Hq * ceil(Sq / 64)`` CTAs fits one CTA per SM, which
+    halves the heaviest CTA's work at batch 1, and 128 where it does not,
+    which halves the K/V tiles read per q row."""
+    if hd != 256:
+        return BLOCK_Q
+    small = B * Hq * -(-Sq // 64) <= sm_count
+    return BLOCK_Q_HD256[0] if small else BLOCK_Q_HD256[1]
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -114,16 +130,18 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    block_q = flash_block_q(B, Sq, Hq, hd, sm_count(q.device))
     fn = _build.launcher("flash_attention", _ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  int(q.dtype == torch.bfloat16), B, Sq, Sk, Hq, Hkv, hd,
-                 int(causal), int(window), stream)
+                 int(causal), int(window), block_q, stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed "
                            f"(error {err}) at q {tuple(q.shape)}, "
-                           f"k {tuple(k.shape)}, {q.dtype}")
+                           f"k {tuple(k.shape)}, {q.dtype}, {block_q} "
+                           f"q rows a CTA")
     flash_attention.launches += 1
     return out
 

@@ -1,8 +1,10 @@
 """The decode kernel's split over the cache, on the CPU: the plan's
-invariants (``kernels/decode_attention.py::split_plan``) and a plain
-PyTorch model of what the kernel computes over that plan (each split's
-online-softmax partial, then a log-sum-exp combine), held against
-``decode_attention_plain`` and the Pallas kernel (interpret mode)."""
+invariants (``kernels/decode_attention.py::split_plan`` and
+``split_groups``) and a plain PyTorch model of what the kernel computes
+over that plan (each split's online-softmax partial, then a log-sum-exp
+combine per group of splits and over the groups), held against
+``decode_attention_plain`` and the Pallas kernel (interpret mode); and
+the flash kernel's tile height (``flash_block_q``)."""
 import math
 
 import numpy as np
@@ -17,7 +19,9 @@ from repro.kernels.decode_attention import \
     decode_attention as j_decode_pallas  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    MAX_SPLIT, SPLIT_TILE, decode_attention_plain, split_plan)
+    MAX_CTAS, MAX_GROUP, MAX_SPLIT, MIN_CHUNK, SPLIT_TILE,
+    decode_attention_plain, split_groups, split_plan)
+from repro_torch.kernels.flash_attention import flash_block_q  # noqa: E402
 
 TOL = dict(rtol=3e-5, atol=3e-5)    # f32, as tests/test_kernels.py
 NEG_INF = -1e30
@@ -27,7 +31,11 @@ H100_SMS = 132
 PLANS = [(1, 36, 544, 132), (8, 36, 544, 132), (4, 36, 544, 132),
          (1, 1, 1, 132), (1, 4, 33, 132), (2, 2, 512, 132),
          (1, 8, 4096, 132), (64, 36, 544, 132), (1, 36, 0, 132),
-         (3, 5, 1000, 78), (1, 1, 100000, 132), (16, 8, 65, 132)]
+         (3, 5, 1000, 78), (1, 1, 100000, 132), (16, 8, 65, 132),
+         # gemma3-1b's global decode (one KV head) at buckets 1 and 8 of
+         # the serving path, and at batch 1 over a 32k and a 128k cache
+         (1, 1, 544, 132), (8, 1, 544, 132), (1, 1, 32768, 132),
+         (1, 1, 131072, 132)]
 
 
 def _ranges(L, n_split, chunk):
@@ -36,10 +44,16 @@ def _ranges(L, n_split, chunk):
 
 @pytest.mark.parametrize("plan", PLANS, ids=str)
 def test_split_plan_covers_the_cache(plan):
+    """Up to MAX_SPLIT ranges of whole tiles (one cluster), or, past that,
+    at most MAX_CTAS ranges of at least MIN_CHUNK keys each."""
     B, Hkv, L, sms = plan
     n_split, chunk = split_plan(B, Hkv, L, sms)
-    assert 1 <= n_split <= MAX_SPLIT
-    assert chunk >= SPLIT_TILE and chunk % SPLIT_TILE == 0
+    assert 1 <= n_split <= MAX_CTAS
+    if n_split <= MAX_SPLIT:
+        assert chunk >= SPLIT_TILE and chunk % SPLIT_TILE == 0
+    else:
+        assert chunk >= MIN_CHUNK
+        assert B * Hkv * n_split <= sms      # one CTA per SM: one wave
     rng = _ranges(L, n_split, chunk)
     assert rng[0][0] == 0 and rng[-1][1] == max(L, 0)
     for (a, b), (c, _) in zip(rng, rng[1:]):
@@ -52,6 +66,37 @@ def test_split_plan_covers_the_cache(plan):
 def test_split_plan_is_deterministic(plan):
     assert split_plan(*plan) == split_plan(*plan)
     assert split_plan(*plan) == split_plan(*[int(x) for x in plan])
+
+
+@pytest.mark.parametrize("hd", [64, 256])
+@pytest.mark.parametrize("plan", PLANS, ids=str)
+def test_split_groups_cover_the_splits(plan, hd):
+    """The combine of every plan: the cluster one (group 0) only for hd
+    <= 128 within one cluster; else groups of consecutive splits, none
+    empty, each and their number within what one combine reads."""
+    n_split, _ = split_plan(*plan)
+    group = split_groups(n_split, hd)
+    assert group == split_groups(n_split, hd)
+    if group == 0:
+        assert hd != 256 and n_split <= MAX_SPLIT
+        return
+    groups = -(-n_split // group)
+    assert 1 <= group <= MAX_GROUP and groups <= MAX_GROUP
+    assert (groups - 1) * group < n_split <= groups * group
+    if n_split > MAX_SPLIT:
+        assert groups > 1
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("L", [32768, 65536, 131072])
+def test_split_plan_fills_the_card_at_long_context(L, sms):
+    """gemma3-1b's global decode at batch 1 (one KV head, 128k context):
+    at least one CTA per SM, in one wave, and no range shorter than
+    MIN_CHUNK."""
+    n_split, chunk = split_plan(1, 1, L, sms)
+    assert n_split >= sms
+    assert n_split == sms                 # exactly one wave
+    assert chunk >= MIN_CHUNK
 
 
 @pytest.mark.parametrize("bucket", [1, 2, 4, 8])
@@ -71,12 +116,24 @@ def test_split_plan_at_the_serving_buckets():
     assert split_plan(8, 36, 544, H100_SMS) == (2, 288)
 
 
-def split_combine(q, k, v, valid_len, n_split, chunk):
-    """The kernel's arithmetic in plain PyTorch (float32): per split, the
+def _lse(parts):
+    """(m, l, acc) of partials combined by log-sum-exp, in their order:
+    m = max_s m_s, l = sum_s w_s l_s, acc = sum_s w_s acc_s with w_s =
+    exp(m_s - m)."""
+    M = torch.stack([m for m, _, _ in parts]).amax(0)
+    w = [torch.exp(m - M) for m, _, _ in parts]
+    return (M, sum(wi * li for wi, (_, li, _) in zip(w, parts)),
+            sum(wi[..., None] * a for wi, (_, _, a) in zip(w, parts)))
+
+
+def split_combine(q, k, v, valid_len, n_split, chunk, group=0):
+    """The kernel's arithmetic in plain PyTorch (float64): per split, the
     max score m, the sum of exponentials l and the weighted sum of V acc
-    (an empty split gives m = -1e30, l = 0, acc = 0); then per row the
-    log-sum-exp combine o = sum_s w_s acc_s / max(sum_s w_s l_s, 1e-30)
-    with w_s = exp(m_s - max_s m_s)."""
+    (an empty split gives m = -1e30, l = 0, acc = 0); then, as the kernel
+    combines (``split_groups``), the partials of each group of ``group``
+    consecutive splits by log-sum-exp (all of them where ``group`` is 0,
+    the cluster combine), then the groups' partials the same way; per row
+    o = acc / max(l, 1e-30)."""
     B, Hq, hd = q.shape
     L, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -98,11 +155,11 @@ def split_combine(q, k, v, valid_len, n_split, chunk):
             ms.append(m)
             ls.append(p.sum(-1))
             accs.append(torch.einsum("kgs,skd->kgd", p, v[b, lo:hi].double()))
-        M = torch.stack(ms).amax(0)
-        w = [torch.exp(m - M) for m in ms]
-        den = sum(wi * li for wi, li in zip(w, ls)).clamp_min(1e-30)
-        out[b] = sum(wi[..., None] * a for wi, a in zip(w, accs)) \
-            / den[..., None]
+        parts = list(zip(ms, ls, accs))
+        size = group or n_split
+        groups = [_lse(parts[i:i + size]) for i in range(0, n_split, size)]
+        _, den, acc = _lse(groups) if len(groups) > 1 else groups[0]
+        out[b] = acc / den.clamp_min(1e-30)[..., None]
     return out.reshape(B, Hq, hd).to(q.dtype)
 
 
@@ -116,6 +173,14 @@ COMBINE_CASES = [
     (4, 130, 8, 1, 72, [1, 64, 65, 0], 132),
     (2, 1000, 4, 4, 128, [999, 129], 132),
     (2, 64, 4, 4, 96, [0, 0], 132),
+    # past one cluster: the ticket combine's groups (one KV head at batch
+    # 1 and 2, hd 64 and gemma3-1b's 256, a row past which whole groups
+    # hold no live key, and valid_len = 0), and gemma3-1b's one-group plan
+    (1, 4096, 4, 1, 64, [4096], 132),
+    (2, 3000, 4, 1, 256, [2999, 700], 132),
+    (1, 9000, 4, 1, 256, [8001], 60),
+    (3, 2048, 8, 2, 128, [0, 2048, 129], 132),
+    (8, 544, 4, 1, 256, [544, 0, 1, 300, 64, 65, 543, 128], 132),
 ]
 
 
@@ -130,7 +195,8 @@ def test_split_combine_matches_the_plain_version(case):
                          .astype(np.float32))
     valid_len = torch.tensor(vl, dtype=torch.int32)
     n_split, chunk = split_plan(B, Hkv, L, sms)
-    got = split_combine(q, k, v, valid_len, n_split, chunk)
+    got = split_combine(q, k, v, valid_len, n_split, chunk,
+                        split_groups(n_split, hd))
     want = decode_attention_plain(q, k, v, valid_len)
     np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
     for b in range(B):
@@ -156,3 +222,37 @@ def test_split_combine_matches_the_pallas_kernel():
     assert n_split > 1
     got = split_combine(*map(torch.from_numpy, (q, k, v, vl)), n_split, chunk)
     np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_split_combine_in_groups_matches_the_pallas_kernel():
+    """A plan past one cluster (one KV head at batch 1: 16 splits of 128
+    keys in groups of 4), ragged, against the Pallas kernel in interpret
+    mode."""
+    B, L, Hq, Hkv, hd = 1, 2048, 4, 1, 64
+    rng = np.random.default_rng(6)
+    q = rng.standard_normal((B, Hq, hd)).astype(np.float32)
+    k = rng.standard_normal((B, L, Hkv, hd)).astype(np.float32)
+    v = rng.standard_normal((B, L, Hkv, hd)).astype(np.float32)
+    vl = np.array([1900], np.int32)
+    want = np.asarray(j_decode_pallas(*map(jnp.asarray, (q, k, v, vl)),
+                                      block_k=64, interpret=True))
+    n_split, chunk = split_plan(B, Hkv, L, H100_SMS)
+    group = split_groups(n_split, hd)
+    assert (n_split, chunk, group) == (16, 128, 4)
+    got = split_combine(*map(torch.from_numpy, (q, k, v, vl)), n_split,
+                        chunk, group)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("case", [
+    # (B, Sq, Hq, hd, SM count, rows): every head dim but 256 takes 128;
+    # gemma3-1b's join (4 q heads, hd 256) at buckets 1, 2 and 4 fits one
+    # 64-row CTA per SM, at bucket 8 not; the boundary
+    (8, 512, 36, 64, 132, 128), (1, 512, 36, 64, 132, 128),
+    (1, 300, 8, 128, 132, 128), (1, 512, 4, 256, 132, 64),
+    (2, 512, 4, 256, 132, 64), (4, 512, 4, 256, 132, 64),
+    (8, 512, 4, 256, 132, 128), (3, 704, 4, 256, 132, 64),
+    (3, 705, 4, 256, 132, 128), (1, 1, 4, 256, 132, 64)], ids=str)
+def test_flash_block_q_picks_by_the_grid(case):
+    B, Sq, Hq, hd, sms, rows = case
+    assert flash_block_q(B, Sq, Hq, hd, sms) == rows

@@ -68,6 +68,14 @@ def _close(got, want, dtype):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+def _close_rows(got, want, dtype):
+    """``_close``, then each row within TOL of its norm (chip_smoke.py's
+    decode check: over a long cache the elements are small)."""
+    _close(got, want, dtype)
+    rel = SMOKE.row_rel_err(got, want)
+    assert rel <= TOL[dtype], f"a row's error is {rel:.3g} of its norm"
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("case", [(2, 100, 228, 6, 3, 64, True, 100),
                                   (2, 1, 96, 6, 3, 72, True, 32),
@@ -108,10 +116,18 @@ def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
     (2, 300, 300, 4, 1, 256, False, 0),
     (2, 1, 1500, 4, 1, 256, False, 0),
     (1, 77, 200, 4, 1, 256, True, 0),
+    # each q-tile height the wrapper picks (flash_block_q): 64 at batch 1,
+    # 128 at bucket 8 (above), a ragged Sq < Sk, a window, non-causal
+    (1, 512, 512, 4, 1, 256, True, 0),
+    (9, 200, 333, 4, 1, 256, True, 0),
+    (8, 600, 600, 4, 1, 256, True, 256),
+    (5, 450, 450, 4, 1, 256, False, 0),
+    (1, 8192, 8192, 4, 1, 256, True, 0),    # a long prompt
 ], ids=str)
 def test_flash_attention_kernel_matches_plain_at_hd256(cuda, case, dtype):
-    """The hd 256 instances: bf16 splits the output columns between its two
-    warpgroups over a three-stage ring; f32 is the CUDA-core kernel."""
+    """The hd 256 instances: bf16 gives each warpgroup 64 q rows and all
+    256 output columns, in CTAs of 64 or 128 rows; f32 is the CUDA-core
+    kernel."""
     test_flash_attention_kernel_matches_plain(cuda, case, dtype)
 
 
@@ -123,9 +139,80 @@ def test_flash_attention_kernel_matches_plain_at_hd256(cuda, case, dtype):
     (1, 544, 4, 1, 256, [544]),
     (2, 1100, 4, 1, 256, [0, 1100]),
     (3, 200, 8, 2, 256, [200, 7, 0]),
+    # batch 1 over a 32k and a 128k cache (132 CTAs, the ticket combine in
+    # groups): full, empty, and ending inside a tile and inside a group;
+    # batch 2 with a row at 0
+    (1, 32768, 4, 1, 256, [32768]),
+    (1, 32768, 4, 1, 256, [0]),
+    (1, 32768, 4, 1, 256, [20001]),
+    (1, 131072, 4, 1, 256, [131072]),
+    (1, 131072, 4, 1, 256, [100001]),
+    (2, 32768, 4, 1, 256, [0, 30001]),
 ], ids=str)
 def test_decode_attention_kernel_matches_plain_at_hd256(cuda, case, dtype):
     test_decode_attention_split_kernel_matches_plain(cuda, case, dtype)
+
+
+@pytest.mark.parametrize("case", [(1, 32768, 4, 1, 256, 30001),
+                                  (8, 544, 4, 1, 256, 500),
+                                  (1, 4096, 8, 1, 128, 4000)], ids=str)
+def test_decode_attention_replays_equal_bit_for_bit(cuda, case):
+    """A decode captured in a CUDA graph at a plan that combines by tickets
+    (132 CTAs in groups at a 32k cache; one group at bucket 8; hd 128 past
+    one cluster): two replays and an eager launch after them equal the
+    eager launch before the capture bit for bit, so every launch and
+    replay finds its tickets at zero and no sum depends on arrival
+    order."""
+    B, L, Hq, Hkv, hd, n = case
+    dt = torch.bfloat16
+    q = torch.randn(B, Hq, hd, generator=cuda, device="cuda").to(dt)
+    k = torch.randn(B, L, Hkv, hd, generator=cuda, device="cuda").to(dt)
+    v = torch.randn(B, L, Hkv, hd, generator=cuda, device="cuda").to(dt)
+    vlen = torch.full((B,), n, dtype=torch.int32, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eager = decode_attention(q, k, v, vlen)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_attention(q, k, v, vlen)
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append(out.clone())
+    after = decode_attention(q, k, v, vlen)
+    torch.cuda.synchronize()
+    assert all(torch.equal(r, eager) for r in replays)
+    assert torch.equal(after, eager)
+    _close_rows(eager, decode_attention_plain(q, k, v, vlen), dt)
+
+
+@pytest.mark.parametrize("case", [(1, 32768, 4, 1, 256, 30001),
+                                  (1, 4096, 8, 1, 128, 4000)], ids=str)
+def test_decode_attention_on_two_streams_at_once(cuda, case):
+    """Ticket-combined decodes of two inputs launched in turns on two
+    streams, so that they overlap on the card: each output equals its own
+    eager launch bit for bit (each launch counts on its own tickets)."""
+    B, L, Hq, Hkv, hd, n = case
+    dt = torch.bfloat16
+    ins = [tuple(torch.randn(*shape, generator=cuda, device="cuda").to(dt)
+                 for shape in ((B, Hq, hd), (B, L, Hkv, hd), (B, L, Hkv, hd)))
+           for _ in range(2)]
+    vlen = torch.full((B,), n, dtype=torch.int32, device="cuda")
+    want = [decode_attention(q, k, v, vlen) for q, k, v in ins]
+    streams = [torch.cuda.Stream() for _ in ins]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(20):
+        for i, (s, (q, k, v)) in enumerate(zip(streams, ins)):
+            with torch.cuda.stream(s):
+                outs[i].append(decode_attention(q, k, v, vlen))
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert all(torch.equal(o, want[i]) for o in outs[i])
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -144,7 +231,7 @@ def test_decode_attention_kernel_matches_plain(cuda, case, dtype):
     torch.cuda.synchronize()
     assert decode_attention.launches == n + 1
     assert not out[0].any()
-    _close(out, decode_attention_plain(q, k, v, vlen), dtype)
+    _close_rows(out, decode_attention_plain(q, k, v, vlen), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -163,6 +250,10 @@ def test_decode_attention_kernel_matches_plain(cuda, case, dtype):
     (2, 130, 64, 8, 32, [130, 66]),
     (1, 200, 8, 1, 96, [0]),
     (2, 100, 32, 1, 32, [100, 51]),
+    # past one cluster (the ticket combine): one KV head at batch 1, and
+    # a long cache at batch 2 with a row of 3 keys
+    (1, 4096, 8, 1, 128, [4000]),
+    (2, 20000, 32, 8, 128, [19999, 3]),
 ], ids=str)
 def test_decode_attention_split_kernel_matches_plain(cuda, case, dtype):
     B, L, Hq, Hkv, hd, vl = case
@@ -178,7 +269,7 @@ def test_decode_attention_split_kernel_matches_plain(cuda, case, dtype):
     for b in range(B):
         if vl[b] == 0:
             assert not out[b].any()
-    _close(out, decode_attention_plain(q, k, v, vlen), dtype)
+    _close_rows(out, decode_attention_plain(q, k, v, vlen), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -1,6 +1,6 @@
 """Time the port's three CUDA kernels of a checkout on the card.
 
-    python3 tools/time_kernels.py ROOT [TAG]
+    python3 tools/time_kernels.py ROOT [TAG] [--hd256]
 
 imports ``repro_torch`` from ``ROOT/src`` (building its kernels into
 ``ROOT/build``) and times, bf16, at the serving shapes that
@@ -11,11 +11,21 @@ P 64, N 128, chunk 64) and its plain version at buckets 8 and 1 (the plain
 one as phase 4 times it, then behind a sleep that outlasts the host's
 enqueue, with the host's time per call beside), and flash's one-CTA fit
 (36 q tiles of 128 rows, not causal, over 64 and 2048 keys: the fixed cost
-of a CTA and the cost of each further 64-key tile).  Each time is the
+of a CTA and the cost of each further 64-key tile); where the checkout
+has ``split_groups``, decode also with the ticket combine in place of the
+cluster combine (``decode_ticket_ms_bucket*``, between two timings of the
+cluster's).  With ``--hd256`` it times instead gemma3-1b's attention at hd
+256 (4 q heads over 1 KV head): flash at buckets 8, 4, 2 and 1 (S 512,
+causal) and at batch 1 over 8192 and 32768 tokens, and decode at buckets
+8 and 1 (L 544) and at batch 1 over 32768 and 131072 keys, each beside
+SDPA on the same inputs (``*_sdpa_*``), the long decodes also beside a
+plain read of K and V and with a clean L2, and each decode's error
+against its plain version (``hd256_times``).  Each time is the
 median of 25 CUDA-event timings, L2 flushed, a device-side sleep ahead of
 each.  It prints one JSON line.  Run it on several checkouts in turns
 (A, B, B, A) in one call to compare them on one card.
 """
+import importlib
 import json
 import subprocess
 import sys
@@ -25,15 +35,21 @@ from pathlib import Path
 import torch
 
 
-def time_ms(fn, flush, runs=25, warmup=3, sleep=1_000_000, host=None):
+def time_ms(fn, flush, runs=25, warmup=3, sleep=1_000_000, host=None,
+            clean=False):
     """Median CUDA-event time of ``fn``; ``sleep`` cycles of device-side
     sleep ahead of each run (about 0.5 ms by default, as chip_smoke.py
-    phase 4).  ``host``, a list, gets the median host time of each call."""
+    phase 4).  ``host``, a list, gets the median host time of each call.
+    The L2 is emptied before each run by writing the flush buffer, as
+    phase 4 does, or with ``clean`` by reading it."""
     for _ in range(warmup):
         fn()
     ts, hs = [], []
     for _ in range(runs):
-        flush.zero_()
+        if clean:
+            flush.max()
+        else:
+            flush.zero_()
         torch.cuda._sleep(sleep)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -49,12 +65,75 @@ def time_ms(fn, flush, runs=25, warmup=3, sleep=1_000_000, host=None):
     return sorted(ts)[len(ts) // 2]
 
 
-def main(root: Path, tag: str) -> int:
+def hd256_times(flash_attention, decode_attention, decode_attention_plain,
+                rnd, flush):
+    """gemma3-1b's hd 256 attention, the kernels beside SDPA: flash at
+    buckets 8, 4, 2, 1 (S 512) and at batch 1 over 8192 and 32768 tokens
+    (``flash256_*_B1_S*``), and its one-wave fit (128 CTAs of 128 and of
+    64 q rows, not causal, over 1 and 32 K/V tiles of 64 keys: the fixed
+    cost and the cost of each further tile); decode at buckets 8 and 1 (L
+    544) and at batch 1 over 32768 and 131072 keys, there also beside a
+    plain read of the same K and V (``k.amax(), v.amax()``), and again
+    with the L2 emptied by a read of the flush buffer in place of a write
+    (so that no dirty line is written back during the timing); and each
+    decode's largest error against its plain version, absolute and as a
+    share of the row's norm (``decode256_err_*``, ``decode256_row_err_*``).
+    """
+    F = torch.nn.functional
+    out = {}
+    for B, S in ((8, 512), (4, 512), (2, 512), (1, 512), (1, 8192),
+                 (1, 32768)):
+        name = f"bucket{B}" if S == 512 else f"B{B}_S{S}"
+        q = rnd(B, S, 4, 256).bfloat16()
+        k, v = rnd(B, S, 1, 256).bfloat16(), rnd(B, S, 1, 256).bfloat16()
+        out[f"flash256_ms_{name}"] = time_ms(
+            lambda: flash_attention(q, k, v, causal=True), flush)
+        out[f"flash256_sdpa_ms_{name}"] = time_ms(
+            lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True), flush)
+    for rows in (128, 64):
+        fit = {}
+        for Sk in (64, 2048):
+            q = rnd(32, rows, 4, 256).bfloat16()
+            k, v = (rnd(32, Sk, 1, 256).bfloat16() for _ in range(2))
+            fit[Sk] = time_ms(lambda: flash_attention(q, k, v, causal=False),
+                              flush)
+        per_tile = (fit[2048] - fit[64]) / 31
+        out[f"flash256_fit{rows}_fixed_ms"] = fit[64] - per_tile
+        out[f"flash256_fit{rows}_per_tile_ms"] = per_tile
+    for B, L in ((8, 544), (1, 544), (1, 32768), (1, 131072)):
+        q = rnd(B, 4, 256).bfloat16()
+        k, v = rnd(B, L, 1, 256).bfloat16(), rnd(B, L, 1, 256).bfloat16()
+        vlen = torch.full((B,), L, dtype=torch.int32, device="cuda")
+        got = decode_attention(q, k, v, vlen).float()
+        want = decode_attention_plain(q, k, v, vlen).float()
+        d = got - want
+        out[f"decode256_err_B{B}_L{L}"] = d.abs().max().item()
+        out[f"decode256_row_err_B{B}_L{L}"] = (
+            d.norm(dim=-1) / want.norm(dim=-1)).max().item()
+        runs = {"": lambda: decode_attention(q, k, v, vlen),
+                "sdpa_": lambda: F.scaled_dot_product_attention(
+                    q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                    enable_gqa=True)}
+        if L > 544:
+            runs["read_"] = lambda: (k.amax(), v.amax())
+        for name, fn in runs.items():
+            out[f"decode256_{name}ms_B{B}_L{L}"] = time_ms(fn, flush)
+            if L > 544:
+                out[f"decode256_{name}ms_B{B}_L{L}_clean"] = time_ms(
+                    fn, flush, clean=True)
+    return out
+
+
+def main(root: Path, tag: str, hd256: bool = False) -> int:
     if not torch.cuda.is_available():
         print("time_kernels: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(root.resolve() / "src"))
-    from repro_torch.kernels.decode_attention import decode_attention
+    dec_mod = importlib.import_module("repro_torch.kernels.decode_attention")
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
     gen = torch.Generator(device="cuda")
@@ -68,6 +147,11 @@ def main(root: Path, tag: str) -> int:
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
 
+    if hd256:
+        out.update(hd256_times(flash_attention, decode_attention,
+                               decode_attention_plain, rnd, flush))
+        print(json.dumps(out), flush=True)
+        return 0
     for B in (8, 1):
         q, k, v = (rnd(B, 512, 36, 64).bfloat16() for _ in range(3))
         out[f"flash_ms_bucket{B}"] = time_ms(
@@ -77,6 +161,18 @@ def main(root: Path, tag: str) -> int:
         vlen = torch.full((B,), 544, dtype=torch.int32, device="cuda")
         out[f"decode_ms_bucket{B}"] = time_ms(
             lambda: decode_attention(qd, kd, vd, vlen), flush)
+        groups = getattr(dec_mod, "split_groups", None)
+        if groups is not None:
+            # every range of a (b, KV head) in one ticket group, then the
+            # cluster combine again
+            dec_mod.split_groups = lambda n_split, hd: n_split
+            try:
+                out[f"decode_ticket_ms_bucket{B}"] = time_ms(
+                    lambda: decode_attention(qd, kd, vd, vlen), flush)
+            finally:
+                dec_mod.split_groups = groups
+            out[f"decode_again_ms_bucket{B}"] = time_ms(
+                lambda: decode_attention(qd, kd, vd, vlen), flush)
         x = rnd(B, 512, 32, 64).bfloat16()
         dt = torch.nn.functional.softplus(rnd(B, 512, 32)).bfloat16()
         A = -torch.exp(0.5 * rnd(32))
@@ -107,7 +203,8 @@ def main(root: Path, tag: str) -> int:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) not in (2, 3):
+    args = [a for a in sys.argv[1:] if a != "--hd256"]
+    if len(args) not in (1, 2):
         sys.exit(__doc__)
-    sys.exit(main(Path(sys.argv[1]), sys.argv[2] if len(sys.argv) == 3
-                  else ""))
+    sys.exit(main(Path(args[0]), args[1] if len(args) == 2 else "",
+                  hd256="--hd256" in sys.argv[1:]))
