@@ -8,10 +8,13 @@ Run from the root of a checkout on a machine with one NVIDIA H100::
 It builds the hand-written CUDA kernels from ``src/repro_torch/csrc``, holds
 each against its plain PyTorch version on the card (at every head dim the
 zoo needs, 256 included), checks that the bf16 flash-attention and SSD
-kernels run on the tensor cores (HGMMA in their SASS), times them at the
-main paths' shapes (every kernel at buckets 8 and 1, the attention kernels
-beside SDPA, gemma3-1b's hd 256 attention too, the SSD scan at every split
-of its chunks), and then, for each of the two main paths (the dense decoder
+kernels run on the tensor cores (HGMMA in their SASS) and the bf16
+decode's tensor-core body at hd 128 and 256 too (HMMA, no spill), times
+them at the main paths' shapes (every kernel at buckets 8 and 1, the
+attention kernels beside SDPA, gemma3-1b's hd 256 attention too, the
+grouped-query attention at hd 128 of minitron-8b, llama4-scout and
+mixtral-8x22b and phi-3's hd 96 join, the SSD scan at every split of its
+chunks), and then, for each of the two main paths (the dense decoder
 minicpm-2b with the two attention kernels, the Mamba2 decoder mamba2-370m
 with the SSD scan): checks the model at full width (two layers) on the card
 against the same weights on the CPU, serves 16 full-width, full-depth
@@ -164,6 +167,10 @@ FA_CASES = [
     (2, 128, 128, 48, 8, 128, True, 0),
     (2, 128, 128, 40, 8, 128, True, 0),
     (1, 592, 592, 32, 32, 96, True, 0),
+    # phase 4's hd 128 (G 4, 6) and hd 96 (phi-3, 32 heads) joins
+    (8, 512, 512, 32, 8, 128, True, 0),
+    (1, 512, 512, 48, 8, 128, True, 0),
+    (8, 512, 512, 32, 32, 96, True, 0),
 ]
 # (B, L, Hq, Hkv, hd, zero_row): tests/test_kernels.py DEC_CASES (block
 # sizes dropped), the minicpm-2b decode shape at buckets 8 and 1 (the most
@@ -196,6 +203,21 @@ DEC_CASES = [
     (2, 544, 32, 8, 128, False),
     (2, 544, 40, 8, 128, False),
     (2, 544, 48, 8, 128, True),
+    # the grouped-query decode at hd 128, which bf16 runs on the tensor
+    # cores (decode_instance; 8 KV heads, G 2 to 8) at split_plan_tc's
+    # plans (one cluster; two stages a warp past one 16-key block a warp):
+    # the serving buckets 8 and 1 over 544 keys, L no multiple of 16, 9000
+    # keys at batch 2, mixtral's window (4096) and 32768 keys at batch 1
+    (2, 544, 16, 8, 128, True),
+    (8, 544, 32, 8, 128, True),
+    (1, 544, 40, 8, 128, False),
+    (8, 544, 48, 8, 128, False),
+    (3, 1001, 48, 8, 128, True),
+    (2, 333, 56, 8, 128, False),
+    (2, 9000, 64, 8, 128, True),
+    (1, 4096, 48, 8, 128, False),
+    (1, 32768, 32, 8, 128, False),
+    (1, 32768, 48, 8, 128, False),
 ]
 # The MoE models at published width but cut depth: mixtral-8x22b holds
 # about 5.0 GB of bf16 a layer and llama4-scout about 4.2 GB, so 4 layers
@@ -299,6 +321,22 @@ LAUNCHER_RUNS = (
                      "continuous", "--requests", "16", "--rps", "8",
                      "--prompt", "512", "--gen", "8")))
 LAUNCHER_TIMEOUT = 300
+
+
+def ptxas_spills(log_text: str) -> Dict[str, Tuple[int, int]]:
+    """The kernels that ptxas (``-Xptxas -v``) reports as spilling: mangled
+    name -> (bytes of spill stores, of spill loads).  Its report gives
+    "Function properties for <mangled name>", then that kernel's spill
+    line."""
+    spills, fn = {}, None
+    for ln in log_text.splitlines():
+        if "Function properties for" in ln:
+            fn = ln.split("Function properties for")[1].strip()
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", ln)
+        if m and fn and (int(m[1]) or int(m[2])):
+            spills[fn] = (int(m[1]), int(m[2]))
+    return spills
 
 
 def log(*a) -> None:
@@ -1007,6 +1045,36 @@ def multitenant_phase(dev, smi: str, apps, *, duration: float, rps: float,
         warmup=0.0, drain=60.0)
     if on_card:
         torch.cuda.reset_peak_memory_stats(dev)
+    # launches per function, measured: the counts' delta around every
+    # instance's set-up and every run of it (calibration's and serving's)
+    per_fn: Dict[str, Dict[str, int]] = {}
+    make_executor = be._make_executor
+
+    def counting_executor(served):
+        ex = make_executor(served)
+        ensure = ex.ensure_instance
+        per_fn.update({fn: dict.fromkeys(kops.launch_counts(), 0)
+                       for fn in served})
+
+        def bracket(fn, call, *args):
+            before = kops.launch_counts()
+            try:
+                return call(*args)
+            finally:
+                for op, n in kops.launch_counts().items():
+                    per_fn[fn][op] += n - before[op]
+
+        def counted_instance(fn, bucket):
+            inst = bracket(fn, ensure, fn, bucket)
+            if "run" not in vars(inst):
+                run = inst.run
+                inst.run = lambda seed=0: bracket(fn, run, seed)
+            return inst
+
+        ex.ensure_instance = counted_instance
+        return ex
+
+    be._make_executor = counting_executor
     kops.reset_launch_counts()
     r0 = graph_replays()
     t0 = time.perf_counter()
@@ -1025,7 +1093,10 @@ def multitenant_phase(dev, smi: str, apps, *, duration: float, rps: float,
     try:
         r = simulate(exp)
     finally:
-        del ex.run_batch        # the wrapper and the executor: a cycle
+        # the wrappers and the executor: cycles
+        del ex.run_batch, ex.ensure_instance, be._make_executor
+        for inst in ex._instances.values():
+            del inst.run
     got = kops.launch_counts()
     replays = graph_replays() - r0
     wall = time.perf_counter() - t0
@@ -1041,9 +1112,9 @@ def multitenant_phase(dev, smi: str, apps, *, duration: float, rps: float,
                 fns.index(u) > fns.index(v) for u, v in a.edges):
             raise AssertionError(f"phase 10: request {req} of {a.dag_id} "
                                  f"ran {fns}")
-    per_fn = {fn: windowed_launches(be, {fn: sm}, runs)
-              for fn, sm in ex.served.items()}
-    want = {op: sum(w[op] for w in per_fn.values()) for op in got}
+    per_fn_want = {fn: windowed_launches(be, {fn: sm}, runs)
+                   for fn, sm in ex.served.items()}
+    want = {op: sum(w[op] for w in per_fn_want.values()) for op in got}
     log(f"[multitenant] archipelago, windowed torch-batched (max_batch "
         f"{max_batch}), {len(apps)} apps at published width "
         + ", ".join(f"{fn} {sm.cfg.name} {sm.cfg.n_layers} layers"
@@ -1058,13 +1129,22 @@ def multitenant_phase(dev, smi: str, apps, *, duration: float, rps: float,
             f"latency p50 {st.p50 * 1e3:.1f} ms, p99 {st.p99 * 1e3:.1f} ms, "
             f"cold starts {st.cold_starts} (simulated clock, advanced by "
             f"measured device time)")
-    log(f"[multitenant] launches {got}, expected {want}, per function "
-        f"{per_fn}; cold starts {r.cold_start_count}; peak memory "
+    log(f"[multitenant] launches {got}, expected {want}; per function "
+        f"{per_fn}, expected {per_fn_want}; cold starts "
+        f"{r.cold_start_count}; peak memory "
         + (f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB"
            if on_card else "not measured"))
     if got != want:
         raise AssertionError(f"phase 10: kernel launches {got}, expected "
                              f"{want}")
+    # every launch lies in some function's set-up or run, each as its
+    # groups reckon
+    if {op: sum(c[op] for c in per_fn.values()) for op in got} != got:
+        raise AssertionError(f"phase 10: launches {got} outside the "
+                             f"functions' runs ({per_fn})")
+    if per_fn != per_fn_want:
+        raise AssertionError(f"phase 10: launches per function {per_fn}, "
+                             f"expected {per_fn_want}")
     # after set-up's warm-up, every prefill and decode step is a replay:
     # per function, calib_runs runs of each bucket's instance and the
     # serving run's batches, each one prefill and gen_len steps
@@ -1803,18 +1883,10 @@ def main() -> int:
         f"into {_build.BUILD_DIR}")
     report["spills"] = {}
     for src in _build.SOURCES:
-        lines = _build.ptxas_log(src).read_text().splitlines()
-        regs = [ln.split("Used ")[1].split(",")[0] for ln in lines
-                if "Used " in ln]
-        # "Function properties for <mangled name>", then its spill line
-        spills, fn = {}, None
-        for ln in lines:
-            if "Function properties for" in ln:
-                fn = ln.split("Function properties for")[1].strip()
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", ln)
-            if m and fn and (int(m[1]) or int(m[2])):
-                spills[fn] = (int(m[1]), int(m[2]))
+        text = _build.ptxas_log(src).read_text()
+        regs = [ln.split("Used ")[1].split(",")[0]
+                for ln in text.splitlines() if "Used " in ln]
+        spills = ptxas_spills(text)
         report["spills"][src] = spills
         log(f"[build] {src}: {len(regs)} instantiations, ptxas: "
             f"{sorted(set(regs))}, {len(spills)} with spills"
@@ -1855,6 +1927,32 @@ def main() -> int:
                     raise AssertionError(f"the bf16 flash kernel at hd 256 "
                                          f"spills: {spilled}")
         report["hgmma"][src] = hgmma
+    # the bf16 decode's tensor-core body (dec_kernel_tc: mma.sync, HMMA in
+    # SASS) at hd 128 (2 <= G <= 8) and 256, with no spill
+    sass = subprocess.run(
+        [cuobjdump, "-sass", str(_build.library_path("decode_attention"))],
+        capture_output=True, text=True, check=True).stdout
+    hmma, fn = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :")[1].strip()
+        elif fn and "dec_kernel_tc" in fn and "HMMA" in ln:
+            hmma[fn] = hmma.get(fn, 0) + 1
+    report["hmma"] = {"decode_attention": hmma}
+    for hd in (128, 256):
+        inst = f"dec_kernel_tcILi{hd}E"
+        n = sum(c for f, c in hmma.items() if inst in f)
+        spilled = [f for f in report["spills"]["decode_attention"]
+                   if inst in f]
+        log(f"[build] decode_attention bf16 hd {hd} (dec_kernel_tc): {n} "
+            f"HMMA instructions (cuobjdump -sass), {len(spilled)} with "
+            f"spills")
+        if not n:
+            raise AssertionError(f"the bf16 decode kernel at hd {hd} holds "
+                                 f"no HMMA instruction")
+        if spilled:
+            raise AssertionError(f"the bf16 decode kernel at hd {hd} "
+                                 f"spills: {spilled}")
 
     # -- 3. kernel vs plain on the card ----------------------------------------
     F = torch.nn.functional
@@ -2052,6 +2150,47 @@ def main() -> int:
             f"{t['library_ms']:.4f} ms, bound {t['bound_ms'] * 1e3:.2f} us "
             f"({t['bound_by']}), bound share {t['bound_ms'] / t['ms']:.2f}; "
             f"{smi}")
+
+    # The grouped-query attention at hd 128 over 8 KV heads (minitron-8b G
+    # 4, llama4-scout G 5, mixtral-8x22b G 6): the decode at buckets 8 and
+    # 1 over 544 keys and at batch 1 over mixtral's window (4096 keys) and
+    # a 32k cache, the join's attention at buckets 8 and 1; and phi-3's hd
+    # 96 join (32 heads, G 1)
+    def with_bucket1(t8, t1):
+        t8.update(ms_bucket1=t1["ms"], library_ms_bucket1=t1["library_ms"],
+                  plain_ms_bucket1=t1["plain_ms"],
+                  bound_ms_bucket1=t1["bound_ms"])
+        return t8
+
+    hd128 = {"decode_attention": {}, "flash_attention": {}}
+    for G in (4, 5, 6):
+        hd128["decode_attention"][f"G{G}"] = t = with_bucket1(
+            *(time_dec(b, L=544, H=8 * G, Hkv=8, hd=128) for b in (8, 1)))
+        t["long_context"] = {L: time_dec(1, L=L, H=8 * G, Hkv=8, hd=128)
+                             for L in (4096, 32768)}
+        hd128["flash_attention"][f"G{G}"] = with_bucket1(
+            *(time_fa(b, H=8 * G, Hkv=8, hd=128) for b in (8, 1)))
+    hd128["flash_attention"]["hd96"] = with_bucket1(
+        *(time_fa(b, H=32, hd=96) for b in (8, 1)))
+    for kname, rows in hd128.items():
+        for inst, t in rows.items():
+            cases = [(f"B8 {544 if kname == 'decode_attention' else 512}",
+                      t["ms"], t["plain_ms"], t["library_ms"],
+                      t["bound_ms"]),
+                     ("B1", t["ms_bucket1"], t["plain_ms_bucket1"],
+                      t["library_ms_bucket1"], t["bound_ms_bucket1"])]
+            cases += [(f"B1 L {L}", u["ms"], u["plain_ms"], u["library_ms"],
+                       u["bound_ms"])
+                      for L, u in t.get("long_context", {}).items()]
+            log(f"[timing] {kname} "
+                + ("hd 96, 32 heads, G 1" if inst == "hd96" else
+                   f"hd 128, {inst}, {8 * int(inst[1:])} heads over 8 KV "
+                   f"heads")
+                + ": "
+                + ", ".join(f"{c}: kernel {ms:.4f} ms, plain {pm:.4f} ms, "
+                            f"library {lm:.4f} ms, bound {bm * 1e3:.2f} us"
+                            for c, ms, pm, lm, bm in cases)
+                + f" ({t['bound_by']}); {smi}")
 
     # What one CTA pays: 36 q tiles of 128 rows (one CTA per SM), not
     # causal, over 1 and 32 K/V tiles of 64 keys; the fit gives the fixed
@@ -2393,9 +2532,10 @@ def main() -> int:
              "src/repro/kernels/decode_attention.py:69", 13,
              "split over the cache, one cluster per (b, KV head), "
              "combine through distributed shared memory, cp.async ring; "
-             "bf16 hd 256: mma.sync, each warp on its own TMA-loaded "
-             "16-key blocks; hd 256 and plans past 8 splits: combined by "
-             "tickets in groups, one CTA per SM at long context"),
+             "bf16 hd 256 and hd 128 with 2 <= G <= 8: mma.sync, each "
+             "warp on its own TMA-loaded 16-key blocks; plans past 8 "
+             "splits: combined by tickets in groups, one CTA per SM at "
+             "long context"),
             ("ssd_scan", ssd, "ssd", "mamba2-370m",
              (8, 512, 32, 64, 128, 64, False),
              "src/repro_torch/csrc/ssd_scan.cu",
@@ -2447,6 +2587,30 @@ def main() -> int:
                 hd256[kname], launches=report["zoo"]["gemma3-1b"][
                     "launches"][op],
                 max_abs_err=errs[kname][(case256, "bfloat16")])
+        if kname not in hd128:
+            continue
+        # the grouped-query instances at hd 128 (and flash at phi-3's hd
+        # 96): launches over phase 9's serve of each model, and phase 10's
+        # measured for its moe app (mixtral-8x22b)
+        cases128 = (
+            {"G4": (8, 512, 512, 32, 8, 128, True, 0),
+             "G5": (2, 128, 128, 40, 8, 128, True, 0),
+             "G6": (1, 512, 512, 48, 8, 128, True, 0),
+             "hd96": (8, 512, 512, 32, 32, 96, True, 0)}
+            if kname == "flash_attention" else
+            {"G4": (8, 544, 32, 8, 128, True),
+             "G5": (2, 544, 40, 8, 128, False),
+             "G6": (8, 544, 48, 8, 128, False)})
+        archs = {"G4": "minitron-8b", "G5": "llama4-scout-17b-a16e",
+                 "G6": "mixtral-8x22b", "hd96": "phi3-mini-3.8b"}
+        kernels[-1]["hd128"] = {
+            inst: dict(hd128[kname][inst], model=archs[inst],
+                       launches=report["zoo"][archs[inst]]["launches"][op],
+                       **({"launches_multitenant": report["multitenant"][
+                           "per_function_launches"]["moe/gen"][op]}
+                          if inst == "G6" else {}),
+                       max_abs_err=errs[kname][(case, "bfloat16")])
+            for inst, case in cases128.items()}
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     out = ROOT / "build"

@@ -9,14 +9,26 @@
 // never read; online softmax in float32 with the finite mask value -1e30; l
 // floored at 1e-30, so a row with valid_len = 0 writes zeros.
 //
-// Bound on an H100: decoding reads every live K and V row once and does
-// about 4 flops per K/V element, far below the ~295 flops/byte at which the
-// card stops being memory-bound.  The CUDA cores keep up with the bytes at
-// hd <= 128; at hd 256 with four query heads a KV head they do not (below),
-// so that instance runs its products on the tensor cores.  At the
+// Bound on an H100: decoding reads every live K and V row once and does G
+// flops per byte of K and V (G = Hq / Hkv query heads a KV head), far below
+// the ~295 flops/byte at which the card stops being memory-bound.  At the
 // serving shape (minicpm-2b, batch 8, valid_len 544, bf16) the bound is
 // 2*8*544*36*64*2 B = 40 MB at 3.35 TB/s, about 12 us; gemma3-1b's global
-// layer at batch 1 and a 128k cache reads 2*131072*256*2 B = 134 MB, 40 us.
+// layer at batch 1 and a 128k cache reads 2*131072*256*2 B = 134 MB, 40 us;
+// a step at hd 128 over 8 KV heads (minitron-8b), batch 8 over 544 keys,
+// 2*8*544*8*128*2 B = 17.8 MB, 5.4 us.  Which body runs is the wrapper's
+// decode_instance:
+//   - dec_kernel, on the CUDA cores: float32 (its tolerance needs full-f32
+//     products), and bf16 at hd <= 96 and at hd 128 with G = 1, where one
+//     shuffle reduction a score keeps up with the bytes (minicpm-2b, hd 64:
+//     0.029 ms at batch 8 against SDPA's 0.027).
+//   - dec_kernel_tc, on the tensor cores: bf16 at hd 256 (gemma3-1b) and at
+//     hd 128 with 2 <= G <= 8 (minitron-8b, llama4-scout; mixtral-8x22b's
+//     layers all slide a window and decode through plain attention).
+//     There dec_kernel paid a 5-step shuffle reduction for every score of
+//     every query head and could not score as fast as it loaded: at hd 128,
+//     G 4 to 6, batch 8 over 544 keys it took 0.038-0.075 ms, 1.75-3.4x
+//     SDPA, where dec_kernel_tc takes 0.019-0.020 (PERF.md, section 6).
 // The design is about bytes in flight:
 //
 // * Split over the cache.  The wrapper's plan (kernels/decode_attention.py,
@@ -25,7 +37,10 @@
 //   SM over B * Hkv * n_split; where B * Hkv is too small for 8 ranges each
 //   to fill the card (one KV head at batch 1), a long cache is cut into as
 //   many ranges as one CTA per SM gives, each of at least MIN_CHUNK keys.
-//   A range at or past valid_len reads nothing.
+//   The hd 128 tensor-core body takes split_plan_tc instead: at most one
+//   CTA per SM and one cluster, ranges of about 256 keys or more, whose
+//   warps stream two stages each.  A range at or past valid_len reads
+//   nothing.
 // * Combine in the same launch, by one of two means (split_groups):
 //   - cluster (hd <= 128, n_split <= 8): the n_split CTAs of one (b, KV
 //     head) form one thread-block cluster.  Each leaves its partial (m, l,
@@ -33,14 +48,16 @@
 //     others' partials through distributed shared memory, combines them by
 //     log-sum-exp and writes o; a second barrier keeps them alive until
 //     read.  No global scratch or atomics.
-//   - tickets (hd 256 at every plan, any head dim past 8 ranges): no
-//     cluster.  Each CTA writes its partial to global scratch (the wrapper's
-//     torch.empty, one per launch), fences, and takes a ticket of its group
-//     of `group` consecutive ranges; the last to arrive combines the
-//     group's partials in range order and writes o, or, with several groups,
-//     the group's partial, and takes a ticket of the (b, KV head), whose
-//     last group combines the groups in order.  The others exit at once: no barrier
-//     between CTAs at all, and no CTA waits for another to be scheduled.
+//   - tickets (hd 256 at every plan, where one group is 1-3 % faster
+//     than a cluster at batch 1 and level at batch 8; any head dim past 8
+//     ranges): no cluster.  Each CTA writes its partial to global scratch
+//     (the wrapper's torch.empty, one per launch), fences, and takes a
+//     ticket of its group of `group` consecutive ranges; the last to
+//     arrive combines the group's partials in range order and writes o,
+//     or, with several groups, the group's partial, and takes a ticket of
+//     the (b, KV head), whose last group combines the groups in order.
+//     The others exit at once: no barrier between CTAs at all, and no CTA
+//     waits for another to be scheduled.
 //     The order of every sum is fixed, whichever CTA arrives last, so a
 //     replay is equal bit for bit.  The tickets sit at the end of the
 //     same scratch and the launcher zeroes them on the launch's stream
@@ -48,7 +65,7 @@
 //     and each replay counts on its own: launches on two streams at once,
 //     or a launch that aborted, share no counter.
 // * Loads and scores, two ways:
-//   - dec_kernel (every head dim but bf16 at hd 256): K/V tiles of 32 keys
+//   - dec_kernel (decode_instance's "cuda_cores"): K/V tiles of 32 keys
 //     stream through a four-stage ring of 16-byte cp.async copies by every
 //     thread, in the input's dtype (not widened), so three tiles are in
 //     flight while one is scored.  The ring is small (32 KB at hd 64 in
@@ -58,11 +75,11 @@
 //     its own online softmax on the CUDA cores: lanes span the head dim
 //     (two elements each), a shuffle reduction gives each key's score, and
 //     all G query rows share the K/V row.
-//   - bf16 at hd 256 (dec_kernel_tc, gemma3-1b): on the tensor cores, each
-//     warp on its own 16-key blocks loaded by TMA; see the comment above
-//     it.  On the CUDA cores the G = 4 heads of hd 256 cost about 600
-//     instructions a warp per 4 keys, and a CTA could not score as fast as
-//     it loaded.
+//   - dec_kernel_tc ("tensor_cores": bf16 at hd 256, and at hd 128 with 2
+//     <= G <= 8): each warp on its own 16-key blocks loaded by TMA; see
+//     the comment above it.  On the CUDA cores the G = 4 heads of hd 256
+//     cost about 600 instructions a warp per 4 keys (4 KB of K and V), the
+//     G = 6 heads of hd 128 about 640 per 2 KB.
 //   The 8 warps' partials are combined in shared memory first.
 #include <cmath>
 #include <cooperative_groups.h>
@@ -282,7 +299,48 @@ __device__ __forceinline__ void ticket_combine(
   combine<T, HD, GC>(gslot, groups, ps, G, nullptr, o, wts, ls, inv, tid);
 }
 
-// CUDA cores, every head dim but bf16 at hd 256 (dec_kernel_tc).
+// The cluster combine, after the warps' partials are at w0 (the launch is
+// one cluster of the n_split CTAs of each (b, KV head)): this CTA's partial
+// into `part` in its shared memory; after a cluster barrier, rank 0 reads
+// the n_split partials through distributed shared memory, combines them in
+// range order and writes o; a second barrier keeps every partial alive
+// until read
+template <typename T, int HD, int GC>
+__device__ __forceinline__ void cluster_combine(const float* w0, float* part,
+                                                float* wts, float* inv, T* o,
+                                                int G, int n_split, int tid) {
+  cta_partial<HD, GC>(w0, part, part + GC, part + 2 * GC, G, tid);
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  if (cluster.block_rank() == 0) {
+    for (int g = tid; g < G; g += NT) {
+      float M = NEG_INF;
+      for (int r = 0; r < n_split; ++r)
+        M = fmaxf(M, cluster.map_shared_rank(part, r)[g]);
+      float s = 0.f;
+      for (int r = 0; r < n_split; ++r) {
+        const float* pr = cluster.map_shared_rank(part, r);
+        const float w = fast_exp2(pr[g] - M);
+        wts[r * GC + g] = w;
+        s = fmaf(w, pr[GC + g], s);
+      }
+      inv[g] = 1.f / fmaxf(s, 1e-30f);
+    }
+    __syncthreads();
+    for (int p = tid; p < G * HD; p += NT) {
+      const int g = p / HD;
+      float a = 0.f;
+      for (int r = 0; r < n_split; ++r)
+        a = fmaf(wts[r * GC + g], cluster.map_shared_rank(part, r)[2 * GC + p],
+                 a);
+      o[p] = repro::from_float<T>(a * inv[g]);
+    }
+  }
+  cluster.sync();
+}
+
+// CUDA cores: every launch that decode_instance does not put on the tensor
+// cores.
 // split = blockIdx.x of gridDim.x = n_split ranges of `chunk` keys;
 // group: 0 for the cluster combine (the launch is one cluster of n_split
 // CTAs per (b, KV head)), else the ticket combine's ranges per group, with
@@ -440,75 +498,57 @@ __global__ void __launch_bounds__(NT)
   const float* w0 = reinterpret_cast<const float*>(smem);
 
   if (group == 0) {
-    // the cluster's partials -> o, on rank 0, through distributed shared
-    // memory
-    cta_partial<HD, GC>(w0, part, part + GC, part + 2 * GC, G, tid);
-    cg::cluster_group cluster = cg::this_cluster();
-    cluster.sync();
-    if (cluster.block_rank() == 0) {
-      for (int g = tid; g < G; g += NT) {
-        float M = NEG_INF;
-        for (int r = 0; r < n_split; ++r)
-          M = fmaxf(M, cluster.map_shared_rank(part, r)[g]);
-        float s = 0.f;
-        for (int r = 0; r < n_split; ++r) {
-          const float* pr = cluster.map_shared_rank(part, r);
-          const float w = fast_exp2(pr[g] - M);
-          wts[r * GC + g] = w;
-          s = fmaf(w, pr[GC + g], s);
-        }
-        inv[g] = 1.f / fmaxf(s, 1e-30f);
-      }
-      __syncthreads();
-      for (int p = tid; p < G * HD; p += NT) {
-        const int g = p / HD;
-        float a = 0.f;
-        for (int r = 0; r < n_split; ++r)
-          a = fmaf(wts[r * GC + g],
-                   cluster.map_shared_rank(part, r)[2 * GC + p], a);
-        o[qo_off + p] = repro::from_float<T>(a * inv[g]);
-      }
-    }
-    cluster.sync();                    // keep every partial alive until read
+    cluster_combine<T, HD, GC>(w0, part, wts, inv, o + qo_off, G, n_split,
+                               tid);
     return;
   }
   ticket_combine<T, HD, GC>(w0, scratch, o + qo_off, wts, ls, inv, flag, G,
                             group, tid);
 }
 
-// -- bf16 at hd 256: tensor cores ----------------------------------------------
+// -- bf16 on the tensor cores: hd 256, and hd 128 with 2 <= G <= 8 ---------
 // Each warp streams its own 16-key blocks of the CTA's range (blocks w, w +
-// 8, ...) through its own stage: one TMA box of 16 rows x 64 columns a
-// panel, four panels of K and four of V (16 KB), 128-byte swizzle, on the
-// warp's mbarrier.  S^T = K q^T is mma.sync m16n8k16 with the 16 keys as
-// rows (ldmatrix from the swizzled panels: no bank conflict) and q^T (the G
-// <= 4 query heads, zero-padded to 8 columns) as a register operand loaded
-// once; the online softmax runs on the fragments (max over the 16 keys by
-// three shuffles, the sum per lane until the end); P^T, moved by four
-// shuffles into the B-operand layout, then gives O^T += V^T P^T, 16 mma of
-// 16 head-dim rows (ldmatrix.trans of V).  A block's keys past the range
-// score -1e30; the box's rows there are real keys or TMA's zeros, never
-// stale, so P = 0 meets finite values.  No CTA barrier until the end.
+// 8, ...) through its own stages: one TMA box of 16 rows x 64 columns a
+// panel, HD / 64 panels of K and as many of V (8 KB a stage at hd 128, 16
+// KB at hd 256), 128-byte swizzle, one mbarrier a stage.  A warp has two
+// stages at hd 128, so that one block loads while the other is scored, and
+// one at hd 256, where two would not fit.
+// S^T = K q^T is mma.sync m16n8k16 with the 16 keys as rows (ldmatrix from
+// the swizzled panels: no bank conflict) and q^T (the G <= 8 query heads,
+// zero-padded to 8 columns) as a register operand loaded once: HD / 16
+// k-steps.  The online softmax runs on the fragments (max over the 16 keys
+// by three shuffles, the sum per lane until the end); P^T, rounded to bf16
+// and moved by four shuffles into the B-operand layout, then gives O^T +=
+// V^T P^T, HD / 16 mma of 16 head-dim rows (ldmatrix.trans of V).  A
+// block's keys past the range score -1e30; the box's rows there are real
+// keys or TMA's zeros, never stale, so P = 0 meets finite values.  No CTA
+// barrier until the end; then the warps' partials, combined over a cluster
+// (up to 8 ranges at hd 128) or by tickets (hd 256, and past 8 ranges), as
+// the wrapper's group says.
 constexpr int TC_KB = 16;                     // keys per block
 constexpr int TC_PANEL = TC_KB * 128;         // 16 rows x 64 columns
-constexpr int TC_STAGE = 8 * TC_PANEL;        // K and V of one block
 
-template <int GC>
+template <int HD>
 struct TcCfg {
-  static constexpr int WS = 2 * GC + GC * 256;  // a warp's partial (floats)
-  static constexpr int RING = NW * TC_STAGE;    // one stage a warp
-  static_assert(NW * WS * 4 <= RING, "the warps' partials fit the ring");
-  // from the base rounded up to 1024 (the swizzle atom): the ring, the
-  // warps' mbarriers, the combine's weights and l, 1 / l, the flag
-  static constexpr int BAR_OFF = RING;
-  static constexpr int WTS_OFF = BAR_OFF + 8 * NW;
+  static constexpr int GC = 1024 / HD;        // head capacity: G * HD <= 1024
+  static constexpr int PANELS = HD / 64;
+  static constexpr int STAGE = 2 * PANELS * TC_PANEL;   // K and V of a block
+  static constexpr int STAGES = HD == 128 ? 2 : 1;      // a warp's
+  static constexpr int WS = 2 * GC + GC * HD; // a warp's partial (floats)
+  // the warps' partials and the CTA's (cluster combine) fit one stage a warp
+  static_assert((NW + 1) * WS * 4 <= NW * STAGE, "the partials fit the ring");
+  // from the base rounded up to 1024 (the swizzle atom): the warps'
+  // mbarriers, the combine's weights and l, 1 / l, the flag; then the ring
+  static constexpr int BAR_OFF = 0;
+  static constexpr int WTS_OFF = BAR_OFF + 8 * NW * STAGES;
   static constexpr int LS_OFF = WTS_OFF + MAX_GROUP * GC * 4;
   static constexpr int INV_OFF = LS_OFF + MAX_GROUP * GC * 4;
   static constexpr int FLAG_OFF = INV_OFF + GC * 4;
-  static constexpr int SMEM = 1024 + FLAG_OFF + 16;
+  static constexpr int RING_OFF = (FLAG_OFF + 16 + 1023) / 1024 * 1024;
+  static constexpr int SMEM = 1024 + RING_OFF + NW * STAGES * STAGE;
 };
 
-template <int GC>
+template <int HD>
 __global__ void __launch_bounds__(NT, 1)
     dec_kernel_tc(const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv,
@@ -517,8 +557,9 @@ __global__ void __launch_bounds__(NT, 1)
                   __nv_bfloat16* __restrict__ o, float* __restrict__ scratch,
                   int L, int Hq, int Hkv, int chunk, int group,
                   float scale_log2) {
-  using C = TcCfg<GC>;
-  constexpr int HD = 256;
+  using C = TcCfg<HD>;
+  constexpr int GC = C::GC, PANELS = C::PANELS, KS = HD / 16;
+  constexpr int ST = C::STAGES;
   extern __shared__ __align__(16) uint8_t smem[];
   const uint32_t raw = hp::smem_u32(smem);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -527,6 +568,7 @@ __global__ void __launch_bounds__(NT, 1)
   float* ls = reinterpret_cast<float*>(basep + C::LS_OFF);
   float* inv = reinterpret_cast<float*>(basep + C::INV_OFF);
   int* flag = reinterpret_cast<int*>(basep + C::FLAG_OFF);
+  float* w0 = reinterpret_cast<float*>(basep + C::RING_OFF);
 
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int G = Hq / Hkv;
@@ -537,51 +579,60 @@ __global__ void __launch_bounds__(NT, 1)
   const int k_begin = split * chunk;
   const int k_end = min(k_begin + chunk, n);
   const int nblk = k_end > k_begin ? (k_end - k_begin + TC_KB - 1) / TC_KB : 0;
+  // this warp's blocks: u-th is block warp + NW * u, in stage u % ST
+  const int mine = warp < nblk ? (nblk - 1 - warp) / NW + 1 : 0;
 
-  const uint32_t sK = base + warp * TC_STAGE, sV = sK + 4 * TC_PANEL;
-  const uint32_t bar = base + C::BAR_OFF + 8 * warp;
-  hp::mbar_init(bar, 1, lane == 0);
+  const uint32_t ring = base + C::RING_OFF + warp * ST * C::STAGE;
+  const uint32_t bar0 = base + C::BAR_OFF + 8 * ST * warp;
+#pragma unroll
+  for (int st = 0; st < ST; ++st) hp::mbar_init(bar0 + 8 * st, 1, lane == 0);
   hp::fence_mbar_init();
   __syncthreads();
-  // block j of the range into this warp's stage; lane 0 issues, predicated
-  auto issue = [&](int j) {
-    const int k0 = k_begin + j * TC_KB;
+  // the u-th block into its stage; lane 0 issues, predicated
+  auto issue = [&](int u) {
+    const int k0 = k_begin + (warp + NW * u) * TC_KB;
+    const uint32_t sK = ring + (u % ST) * C::STAGE;
+    const uint32_t sV = sK + PANELS * TC_PANEL;
+    const uint32_t bar = bar0 + 8 * (u % ST);
     const bool on = lane == 0;
-    hp::mbar_expect_tx(bar, TC_STAGE, on);
+    hp::mbar_expect_tx(bar, C::STAGE, on);
 #pragma unroll
-    for (int p = 0; p < 4; ++p) {
+    for (int p = 0; p < PANELS; ++p) {
       hp::tma_load4(sK + p * TC_PANEL, &tk, 64 * p, hk, k0, b, bar, on);
       hp::tma_load4(sV + p * TC_PANEL, &tv, 64 * p, hk, k0, b, bar, on);
     }
   };
-  if (warp < nblk) issue(warp);
+#pragma unroll
+  for (int u = 0; u < ST; ++u)
+    if (u < mine) issue(u);
 
   // q^T as the B operand of S^T: k-step st holds head dims 16st..16st+15;
   // column g is query head g (zero past G)
-  uint32_t qf[16][2];
+  uint32_t qf[KS][2];
 #pragma unroll
-  for (int st = 0; st < 16; ++st) {
+  for (int st = 0; st < KS; ++st) {
     const __nv_bfloat16* qp = q + qo_off + (long)g * HD + 16 * st + 2 * t4;
     qf[st][0] = g < G ? *reinterpret_cast<const uint32_t*>(qp) : 0u;
     qf[st][1] = g < G ? *reinterpret_cast<const uint32_t*>(qp + 8) : 0u;
   }
   // O^T: rows 16mb + g (+ 8) of the head dim, columns (query heads) 2t4, +1
-  float acc[16][4];
+  float acc[KS][4];
 #pragma unroll
-  for (int mb = 0; mb < 16; ++mb)
+  for (int mb = 0; mb < KS; ++mb)
     acc[mb][0] = acc[mb][1] = acc[mb][2] = acc[mb][3] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};  // heads 2t4, 2t4 + 1
   // ldmatrix: lane names row (lane & 7) of matrix lane >> 3
   const int mi = lane >> 3, rr = lane & 7;
 
-  int use = 0;
-  for (int j = warp; j < nblk; j += NW, ++use) {
-    hp::mbar_wait(bar, use & 1);
-    const int k0 = k_begin + j * TC_KB;
+  for (int u = 0; u < mine; ++u) {
+    hp::mbar_wait(bar0 + 8 * (u % ST), (u / ST) & 1);
+    const int k0 = k_begin + (warp + NW * u) * TC_KB;
+    const uint32_t sK = ring + (u % ST) * C::STAGE;
+    const uint32_t sV = sK + PANELS * TC_PANEL;
     // S^T (16 keys x 8 heads): A = K (keys x dims) from the panels
     float s[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int st = 0; st < 16; ++st) {
+    for (int st = 0; st < KS; ++st) {
       const int row = rr + 8 * (mi & 1), chunk16 = 2 * (st & 3) + (mi >> 1);
       uint32_t a[4];
       hp::ldsm_x4(a, sK + (st >> 2) * TC_PANEL + row * 128 +
@@ -616,12 +667,12 @@ __global__ void __launch_bounds__(NT, 1)
     const uint32_t a1 = __shfl_sync(0xffffffffu, x1, src);
     const uint32_t c0 = __shfl_sync(0xffffffffu, x0, src + 4);
     const uint32_t c1 = __shfl_sync(0xffffffffu, x1, src + 4);
-    const uint32_t u = (g & 1) ? a1 : a0, w = (g & 1) ? c1 : c0;
-    const uint32_t pb0 = __byte_perm(u, w, 0x5410);   // rows 2t4, 2t4 + 1
-    const uint32_t pb1 = __byte_perm(u, w, 0x7632);   // rows + 8, + 9
+    const uint32_t u0 = (g & 1) ? a1 : a0, w = (g & 1) ? c1 : c0;
+    const uint32_t pb0 = __byte_perm(u0, w, 0x5410);  // rows 2t4, 2t4 + 1
+    const uint32_t pb1 = __byte_perm(u0, w, 0x7632);  // rows + 8, + 9
     // O^T += V^T P^T: A = V^T (dims x keys), ldmatrix.trans of V's rows
 #pragma unroll
-    for (int mb = 0; mb < 16; ++mb) {
+    for (int mb = 0; mb < KS; ++mb) {
       acc[mb][0] *= alpha[0];
       acc[mb][1] *= alpha[1];
       acc[mb][2] *= alpha[0];
@@ -633,13 +684,13 @@ __global__ void __launch_bounds__(NT, 1)
       hp::mma_bf16(acc[mb], a, pb0, pb1);
     }
     __syncwarp();                      // every lane has read the stage
-    if (j + NW < nblk) issue(j + NW);
+    if (u + ST < mine) issue(u + ST);
   }
   __syncthreads();                     // the ring is free for the partials
 
   // this warp's partial: m (in the log2 units the combine takes), l
   // (summed over the lanes of a column) and O
-  float* wp = reinterpret_cast<float*>(basep) + warp * C::WS;
+  float* wp = w0 + warp * C::WS;
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     l[e] += __shfl_xor_sync(0xffffffffu, l[e], 4);
@@ -652,15 +703,19 @@ __global__ void __launch_bounds__(NT, 1)
         wp[GC + qh] = l[e];
       }
 #pragma unroll
-      for (int mb = 0; mb < 16; ++mb) {
+      for (int mb = 0; mb < KS; ++mb) {
         wp[2 * GC + qh * HD + 16 * mb + g] = acc[mb][e];
         wp[2 * GC + qh * HD + 16 * mb + g + 8] = acc[mb][2 + e];
       }
     }
   }
   __syncthreads();
-  ticket_combine<__nv_bfloat16, HD, GC>(reinterpret_cast<const float*>(basep),
-                                        scratch, o + qo_off, wts, ls, inv,
+  if (group == 0) {
+    cluster_combine<__nv_bfloat16, HD, GC>(w0, w0 + NW * C::WS, wts, inv,
+                                           o + qo_off, G, gridDim.x, tid);
+    return;
+  }
+  ticket_combine<__nv_bfloat16, HD, GC>(w0, scratch, o + qo_off, wts, ls, inv,
                                         flag, G, group, tid);
 }
 
@@ -681,12 +736,13 @@ cudaError_t zero_tickets(float* scratch, int B, int Hkv, int G, int n_split,
                          stream);
 }
 
+// dec_kernel: the CUDA cores.  GC is compiled only where a G past the
+// capacity below it can meet G * hd <= 1024 (the wrapper's
+// MAX_GROUP_WIDTH)
 template <typename T, int HD, int GC>
 int launch(const void* q, const void* k, const void* v, const int* vlen,
            void* o, float* scratch, int B, int L, int Hq, int Hkv,
            int n_split, int chunk, int group, cudaStream_t stream) {
-  // the capacity below GC; GC is compiled only where a G past it can meet
-  // G * hd <= 1024 (the wrapper's MAX_GROUP_WIDTH)
   constexpr int PREV = GC == 1 ? 0 : GC == 4 ? 1 : GC == 16 ? 4 : 16;
   if constexpr (PREV >= 1024 / HD) {
     return -1;
@@ -700,48 +756,30 @@ int launch(const void* q, const void* k, const void* v, const int* vlen,
       if (err != cudaSuccess) return (int)err;
     }
     const float scale_log2 = (float)(LOG2E / std::sqrt((double)HD));
-    if constexpr (HD == 256 && sizeof(T) == 2) {
-      if (group == 0) return -1;       // dec_kernel_tc combines by tickets
-      CUtensorMap tk, tv;
-      if (!hp::make_map_bshd(&tk, k, HD, Hkv, L, B, TC_KB) ||
-          !hp::make_map_bshd(&tv, v, HD, Hkv, L, B, TC_KB))
-        return -2;
-      const int bytes = TcCfg<GC>::SMEM;
-      cudaError_t err = cudaFuncSetAttribute(
-          dec_kernel_tc<GC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          bytes);
-      if (err != cudaSuccess) return (int)err;
-      dec_kernel_tc<GC><<<dim3(n_split, Hkv, B), NT, bytes, stream>>>(
-          tk, tv, static_cast<const __nv_bfloat16*>(q), vlen,
-          static_cast<__nv_bfloat16*>(o), scratch, L, Hq, Hkv, chunk, group,
-          scale_log2);
-      return (int)cudaGetLastError();
-    } else {
-      const int bytes = Cfg<T, HD, GC>::SMEM;
-      auto kern = dec_kernel<T, HD, GC>;
-      cudaError_t err = cudaFuncSetAttribute(
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-      if (err != cudaSuccess) return (int)err;
-      cudaLaunchConfig_t cfg = {};
-      cfg.gridDim = dim3(n_split, Hkv, B);
-      cfg.blockDim = dim3(NT);
-      cfg.dynamicSmemBytes = bytes;
-      cfg.stream = stream;
-      cudaLaunchAttribute attr[1];
-      attr[0].id = cudaLaunchAttributeClusterDimension;
-      attr[0].val.clusterDim.x = n_split;
-      attr[0].val.clusterDim.y = 1;
-      attr[0].val.clusterDim.z = 1;
-      cfg.attrs = attr;
-      cfg.numAttrs = group == 0 ? 1 : 0;
-      err = cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(q),
-                               static_cast<const T*>(k),
-                               static_cast<const T*>(v), vlen,
-                               static_cast<T*>(o), scratch, L, Hq, Hkv, chunk,
-                               group, scale_log2);
-      if (err != cudaSuccess) return (int)err;
-      return (int)cudaGetLastError();
-    }
+    const int bytes = Cfg<T, HD, GC>::SMEM;
+    auto kern = dec_kernel<T, HD, GC>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(n_split, Hkv, B);
+    cfg.blockDim = dim3(NT);
+    cfg.dynamicSmemBytes = bytes;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = n_split;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = group == 0 ? 1 : 0;
+    err = cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(q),
+                             static_cast<const T*>(k),
+                             static_cast<const T*>(v), vlen,
+                             static_cast<T*>(o), scratch, L, Hq, Hkv, chunk,
+                             group, scale_log2);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
   }
 }
 
@@ -784,25 +822,83 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v,
 #undef REPRO_DEC_HD
 }
 
+// dec_kernel_tc (bf16): the cluster combine up to MAX_CLUSTER ranges where
+// the wrapper asks for it (group 0), else tickets
+template <int HD>
+int launch_tc(const void* q, const void* k, const void* v, const int* vlen,
+              void* o, float* scratch, int B, int L, int Hq, int Hkv,
+              int n_split, int chunk, int group, cudaStream_t stream) {
+  using C = TcCfg<HD>;
+  if (Hq / Hkv > C::GC) return -1;
+  if (group == 0 ? n_split > MAX_CLUSTER
+                 : !tickets_fit(scratch, n_split, group))
+    return -1;
+  if (group > 0) {
+    const cudaError_t err =
+        zero_tickets<HD>(scratch, B, Hkv, Hq / Hkv, n_split, group, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  CUtensorMap tk, tv;
+  if (!hp::make_map_bshd(&tk, k, HD, Hkv, L, B, TC_KB) ||
+      !hp::make_map_bshd(&tv, v, HD, Hkv, L, B, TC_KB))
+    return -2;
+  const int bytes = C::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      dec_kernel_tc<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_split, Hkv, B);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = group == 0 ? 1 : 0;
+  const float scale_log2 = (float)(LOG2E / std::sqrt((double)HD));
+  err = cudaLaunchKernelEx(&cfg, dec_kernel_tc<HD>, tk, tv,
+                           static_cast<const __nv_bfloat16*>(q), vlen,
+                           static_cast<__nv_bfloat16*>(o), scratch, L, Hq,
+                           Hkv, chunk, group, scale_log2);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // C interface for ctypes.  Returns 0 on success, the cudaError_t of a
-// refused launch, -1 for a head dim, group or plan the kernel was not built
-// for, or -2 if a TMA tensor map could not be made.  n_split CTAs of `chunk` keys each per (b, KV head): the
-// wrapper's split_plan; group: 0 to combine over one cluster of the
-// n_split CTAs (hd <= 128, n_split <= 8), else the ticket combine's ranges
-// per group (split_groups), with `scratch` its float32 partials and then
-// its B * Hkv * (groups + 1) tickets (zeroed here, on `stream`).
+// refused launch, -1 for an instance, head dim, group or plan the kernel
+// was not built for, or -2 if a TMA tensor map could not be made.  n_split
+// CTAs of `chunk` keys each per (b, KV head): the wrapper's split_plan;
+// group: 0 to combine over one cluster of the n_split CTAs (n_split <= 8),
+// else the ticket combine's ranges per group (split_groups),
+// with `scratch` its float32 partials and then its B * Hkv * (groups + 1)
+// tickets (zeroed here, on `stream`); tensor_cores: the body, which the
+// wrapper's decode_instance alone chooses, 1 for dec_kernel_tc (bf16 at hd
+// 128 and 256 only), 0 for dec_kernel (every dtype and head dim).
 extern "C" int repro_decode_attention(const void* q, const void* k,
                                       const void* v, const void* valid_len,
                                       void* o, void* scratch, int is_bf16,
                                       int B, int L, int Hq, int Hkv, int hd,
                                       int n_split, int chunk, int group,
-                                      void* stream) {
+                                      int tensor_cores, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* vlen = static_cast<const int*>(valid_len);
   float* part = static_cast<float*>(scratch);
   if (n_split < 1 || chunk < 1 || group < 0) return -1;
+  if (tensor_cores) {
+    if (!is_bf16) return -1;
+    if (hd == 128)
+      return launch_tc<128>(q, k, v, vlen, o, part, B, L, Hq, Hkv, n_split,
+                            chunk, group, s);
+    if (hd == 256)
+      return launch_tc<256>(q, k, v, vlen, o, part, B, L, Hq, Hkv, n_split,
+                            chunk, group, s);
+    return -1;
+  }
   if (is_bf16)
     return dispatch_hd<__nv_bfloat16>(hd, q, k, v, vlen, o, part, B, L, Hq,
                                       Hkv, n_split, chunk, group, s);

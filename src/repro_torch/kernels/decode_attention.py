@@ -5,7 +5,11 @@ Replaces the Pallas TPU kernel ``src/repro/kernels/decode_attention.py``
 (``decode_attention``, body ``_dec_kernel``).  :func:`decode_attention`
 picks the implementation from the device of its inputs: CPU and meta
 tensors go to :func:`decode_attention_plain`, CUDA tensors launch the
-kernel or raise.
+kernel or raise.  The kernel has two bodies, and :func:`decode_instance`
+names the one a launch runs: the tensor cores for bf16 at hd 256 and at
+hd 128 with 2 to 8 query heads a KV head (minitron-8b, llama4-scout),
+split by :func:`split_plan_tc` at hd 128; the CUDA cores for the rest,
+split by :func:`split_plan`.
 ``decode_attention.launches`` counts kernel launches.
 
 A row with ``valid_len = 0`` attends to nothing and comes out as zeros, as
@@ -28,7 +32,7 @@ from .ref import PLAIN_DEVICES, decode_attention_ref
 HEAD_DIMS = (32, 64, 72, 96, 128, 256)
 DTYPES = (torch.bfloat16, torch.float32)
 # pointers, then ints, then the stream: the C launcher's parameters
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 MAX_GROUP_WIDTH = 1024      # G * hd: the kernel's per-lane registers
 SPLIT_TILE = 32             # the kernel's keys per tile
 MAX_SPLIT = 8               # CTAs per cluster that every Hopper card takes
@@ -37,6 +41,24 @@ MAX_CTAS = 1024             # CTAs per (b, KV head) past one cluster
 MIN_CHUNK = 4 * SPLIT_TILE  # keys per CTA at least, past one cluster
 MAX_GROUP = 32              # partials one ticket combine reads (the kernel's)
 TICKET_HEAD_DIMS = (256,)   # instances that combine by tickets at any plan
+TC_MIN_CHUNK = 256          # keys per CTA at least on the hd 128 tensor cores
+# bf16 head dims on the tensor cores, with the query heads a KV head there
+TENSOR_CORE_GROUPS = {128: range(2, 9), 256: range(1, 5)}
+
+
+def decode_instance(hd: int, G: int, dtype: torch.dtype) -> str:
+    """Which of the kernel's two bodies a launch at head dim ``hd`` with
+    ``G`` query heads a KV head runs: ``"tensor_cores"`` (``dec_kernel_tc``,
+    ``mma.sync`` on TMA-loaded 16-key blocks) for bf16 at hd 256 and at hd
+    128 with 2 <= G <= 8, where the CUDA cores' per-head shuffle reductions
+    cost more than the loads; else ``"cuda_cores"`` (``dec_kernel``): float32,
+    whose tolerance needs full-f32 products, and the byte-bound rest (G = 1
+    would leave 7 of the tensor-core tile's 8 head columns empty).  The
+    wrapper passes the choice to the C launcher, which launches that body
+    or refuses: this function alone decides."""
+    if dtype == torch.bfloat16 and G in TENSOR_CORE_GROUPS.get(hd, ()):
+        return "tensor_cores"
+    return "cuda_cores"
 
 
 def split_plan(B: int, Hkv: int, L: int, sm_count: int) -> Tuple[int, int]:
@@ -68,18 +90,57 @@ def split_plan(B: int, Hkv: int, L: int, sm_count: int) -> Tuple[int, int]:
     return max(1, -(-L // chunk)), chunk
 
 
+def split_plan_tc(B: int, Hkv: int, L: int, sm_count: int) -> Tuple[int, int]:
+    """The plan of the hd 128 tensor-core body (:func:`decode_instance`):
+    ``(n_split, chunk)`` as :func:`split_plan` gives them, ranges of whole
+    32-key tiles, but at most one CTA per SM over ``B * Hkv * n_split``, at
+    most ``MAX_SPLIT`` ranges (one cluster), and no more ranges than
+    ``ceil(L / TC_MIN_CHUNK)``, so that each of several holds more than
+    ``TC_MIN_CHUNK / 2`` keys: more than one 16-key block a warp, which
+    then streams through two stages.  A warp there scores a block in
+    less time than its stage takes to refill, so fewer and longer ranges
+    stream as fast and pay fewer prologues and combines: on an H100 at 8
+    KV heads, G 6, the kernel took 0.0194 ms at batch 8 over 544 keys in 2
+    ranges against 0.0282 in :func:`split_plan`'s 6, and 0.0639–0.0645 ms
+    at batch 1 over 32768 keys in 8 ranges against 0.0663–0.0667 in its 16
+    (``tools/time_kernels.py --hd128-plans``; PERF.md, section 6)."""
+    tiles = max(1, -(-L // SPLIT_TILE))
+    n = max(1, min(MAX_SPLIT, sm_count // max(1, B * Hkv),
+                   -(-L // TC_MIN_CHUNK), tiles))
+    chunk = -(-tiles // n) * SPLIT_TILE
+    return max(1, -(-L // chunk)), chunk
+
+
 def split_groups(n_split: int, hd: int) -> int:
-    """How the kernel combines the ``n_split`` partials of a (b, KV head):
-    0 for the cluster combine (the CTAs form one thread-block cluster, rank
-    0 reads the others' partials), which hd <= 128 takes up to
+    """How the kernel combines the ``n_split`` partials of a (b, KV head),
+    in either body: 0 for the cluster combine (the CTAs form one
+    thread-block cluster, rank 0 reads the others' partials) up to
     ``MAX_SPLIT`` ranges; else the size of the ticket combine's groups of
-    consecutive ranges: all of them where there are at most ``MAX_SPLIT``,
-    else ``ceil(sqrt(n_split))``, so that the last CTA of a group and the
-    last group each read about ``sqrt(n_split)`` partials.  Every sum runs
-    in range order."""
+    consecutive ranges: all of them where there are at most ``MAX_SPLIT``
+    (hd 256: on an H100 gemma3-1b's 6 ranges at batch 1 over 544 keys
+    took 0.0133-0.0136 ms by tickets against 0.0136-0.0138 over a
+    cluster, level at batch 8; ``tools/time_kernels.py --hd256``, PERF.md
+    section 6), else
+    ``ceil(sqrt(n_split))``, so that the last CTA of a group and the last
+    group each read about ``sqrt(n_split)`` partials.  Every sum runs in
+    range order."""
     if n_split <= MAX_SPLIT:
         return 0 if hd not in TICKET_HEAD_DIMS else n_split
     return math.isqrt(n_split - 1) + 1
+
+
+def decode_plan(B: int, Hq: int, Hkv: int, L: int, hd: int,
+                dtype: torch.dtype, sm_count: int) -> Tuple[str, int, int,
+                                                             int]:
+    """The launch a decode at these shapes makes: ``(instance, n_split,
+    chunk, group)``, the body (:func:`decode_instance`), its plan
+    (:func:`split_plan_tc` for the hd 128 tensor-core body, else
+    :func:`split_plan`) and the combine (:func:`split_groups`)."""
+    instance = decode_instance(hd, Hq // Hkv, dtype)
+    plan = (split_plan_tc if instance == "tensor_cores" and hd == 128
+            else split_plan)
+    n_split, chunk = plan(B, Hkv, L, sm_count)
+    return instance, n_split, chunk, split_groups(n_split, hd)
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -139,8 +200,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    n_split, chunk = split_plan(B, Hkv, L, sm_count(q.device))
-    group = split_groups(n_split, hd)
+    instance, n_split, chunk, group = decode_plan(
+        B, Hq, Hkv, L, hd, q.dtype, sm_count(q.device))
     # the ticket combine's partials: one per CTA, then one per group, of
     # G * (hd + 2) floats (m, l, acc), every slot written before read; then
     # its tickets, one per group and one per (b, KV head), which the C
@@ -158,12 +219,13 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  valid_len.data_ptr(), out.data_ptr(),
                  0 if scratch is None else scratch.data_ptr(),
                  int(q.dtype == torch.bfloat16), B, L, Hq, Hkv, hd, n_split,
-                 chunk, group, stream)
+                 chunk, group, int(instance == "tensor_cores"), stream)
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed "
                            f"(error {err}) at q {tuple(q.shape)}, "
                            f"k {tuple(k.shape)}, {q.dtype}, {n_split} "
-                           f"splits of {chunk} keys, groups of {group}")
+                           f"splits of {chunk} keys, groups of {group}, "
+                           f"on the {instance.replace('_', ' ')}")
     decode_attention.launches += 1
     return out
 

@@ -19,8 +19,9 @@ from repro.kernels.decode_attention import \
     decode_attention as j_decode_pallas  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    MAX_CTAS, MAX_GROUP, MAX_SPLIT, MIN_CHUNK, SPLIT_TILE,
-    decode_attention_plain, split_groups, split_plan)
+    MAX_CTAS, MAX_GROUP, MAX_SPLIT, MIN_CHUNK, SPLIT_TILE, TC_MIN_CHUNK,
+    decode_attention_plain, decode_instance, decode_plan, split_groups,
+    split_plan, split_plan_tc)
 from repro_torch.kernels.flash_attention import flash_block_q  # noqa: E402
 
 TOL = dict(rtol=3e-5, atol=3e-5)    # f32, as tests/test_kernels.py
@@ -35,7 +36,12 @@ PLANS = [(1, 36, 544, 132), (8, 36, 544, 132), (4, 36, 544, 132),
          # gemma3-1b's global decode (one KV head) at buckets 1 and 8 of
          # the serving path, and at batch 1 over a 32k and a 128k cache
          (1, 1, 544, 132), (8, 1, 544, 132), (1, 1, 32768, 132),
-         (1, 1, 131072, 132)]
+         (1, 1, 131072, 132),
+         # the grouped-query decode at hd 128 (8 KV heads: minitron-8b,
+         # llama4-scout, mixtral-8x22b) at buckets 8 and 1 over the serving
+         # cache, mixtral's window and a 32k cache
+         (8, 8, 544, 132), (1, 8, 544, 132), (8, 8, 4096, 132),
+         (8, 8, 32768, 132), (1, 8, 32768, 132)]
 
 
 def _ranges(L, n_split, chunk):
@@ -68,18 +74,22 @@ def test_split_plan_is_deterministic(plan):
     assert split_plan(*plan) == split_plan(*[int(x) for x in plan])
 
 
-@pytest.mark.parametrize("hd", [64, 256])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("plan", PLANS, ids=str)
 def test_split_groups_cover_the_splits(plan, hd):
-    """The combine of every plan: the cluster one (group 0) only for hd
-    <= 128 within one cluster; else groups of consecutive splits, none
-    empty, each and their number within what one combine reads."""
-    n_split, _ = split_plan(*plan)
-    group = split_groups(n_split, hd)
+    """The combine of every plan that a bf16 decode at G 4 makes (the CUDA
+    cores at hd 64, the tensor cores at hd 128 and 256): the cluster one
+    (group 0) only for hd <= 128 within one cluster; else groups of
+    consecutive splits, none empty, each and their number within what one
+    combine reads, more than one past one cluster."""
+    B, Hkv, L, sms = plan
+    _, n_split, _, group = decode_plan(B, 4 * Hkv, Hkv, L, hd,
+                                       torch.bfloat16, sms)
     assert group == split_groups(n_split, hd)
     if group == 0:
         assert hd != 256 and n_split <= MAX_SPLIT
         return
+    assert hd == 256 or n_split > MAX_SPLIT
     groups = -(-n_split // group)
     assert 1 <= group <= MAX_GROUP and groups <= MAX_GROUP
     assert (groups - 1) * group < n_split <= groups * group
@@ -114,6 +124,76 @@ def test_split_plan_at_the_serving_buckets():
     at bucket 1 (216 CTAs), 2 of 288 at bucket 8 (576)."""
     assert split_plan(1, 36, 544, H100_SMS) == (6, 96)
     assert split_plan(8, 36, 544, H100_SMS) == (2, 288)
+
+
+@pytest.mark.parametrize("plan", PLANS, ids=str)
+def test_split_plan_tc_covers_the_cache(plan):
+    """The hd 128 tensor-core plan: at most one cluster of whole tiles, at
+    most one CTA per SM (but one range where B * Hkv alone passes the SMs),
+    and each of several ranges more than TC_MIN_CHUNK / 2 keys."""
+    B, Hkv, L, sms = plan
+    n_split, chunk = split_plan_tc(B, Hkv, L, sms)
+    assert split_plan_tc(B, Hkv, L, sms) == (n_split, chunk)
+    assert 1 <= n_split <= MAX_SPLIT and split_groups(n_split, 128) == 0
+    assert chunk >= SPLIT_TILE and chunk % SPLIT_TILE == 0
+    assert B * Hkv * n_split <= max(sms, B * Hkv)
+    if n_split > 1:
+        assert chunk > TC_MIN_CHUNK // 2
+    rng = _ranges(L, n_split, chunk)
+    assert rng[0][0] == 0 and rng[-1][1] == max(L, 0)
+    for (a, b), (c, _) in zip(rng, rng[1:]):
+        assert b == c
+    if L > 0:
+        assert all(b > a for a, b in rng)
+
+
+@pytest.mark.parametrize("case", [
+    # (B, L): (n_split, chunk, group) over 8 KV heads at hd 128 on an H100,
+    # as split_plan_tc gives them to the tensor-core body: at most one CTA
+    # per SM, one cluster, no range much under TC_MIN_CHUNK keys
+    ((8, 544), (2, 288, 0)), ((1, 544), (3, 192, 0)),
+    ((8, 4096), (2, 2048, 0)), ((1, 4096), (8, 512, 0)),
+    ((8, 32768), (2, 16384, 0)), ((1, 32768), (8, 4096, 0))], ids=str)
+def test_split_plan_at_the_hd128_grouped_shapes(case):
+    (B, L), want = case
+    n_split, chunk = split_plan_tc(B, 8, L, H100_SMS)
+    assert (n_split, chunk, split_groups(n_split, 128)) == want
+
+
+@pytest.mark.parametrize("case", [
+    # (hd, G, dtype, instance): bf16 on the tensor cores at hd 256 and at
+    # hd 128 with 2 <= G <= 8; G 1, float32 and hd <= 96 on the CUDA cores
+    *[(128, G, torch.bfloat16, "tensor_cores") for G in range(2, 9)],
+    *[(256, G, torch.bfloat16, "tensor_cores") for G in (1, 2, 4)],
+    (128, 1, torch.bfloat16, "cuda_cores"),
+    *[(hd, G, torch.float32, "cuda_cores")
+      for hd, G in ((128, 1), (128, 4), (128, 6), (128, 8), (256, 4))],
+    *[(hd, G, dt, "cuda_cores") for hd in (32, 64, 72, 96)
+      for G in (1, 4, 8) for dt in (torch.bfloat16, torch.float32)]],
+    ids=str)
+def test_decode_instance_picks_the_body(case):
+    hd, G, dtype, want = case
+    assert decode_instance(hd, G, dtype) == want
+
+
+@pytest.mark.parametrize("case", [
+    # (B, Hq, Hkv, L, hd, dtype): (instance, n_split, chunk, group) on an
+    # H100 at the serving paths' decodes: minicpm-2b (hd 64, G 1) over a
+    # cluster and gemma3-1b (hd 256, one KV head) in one ticket group, at
+    # buckets 8 and 1 over 544 keys; gemma3-1b in float32; minitron-8b (hd
+    # 128, G 4) over a cluster; gemma3-1b's global layer at batch 1 over
+    # 32768 keys, by tickets in groups
+    ((8, 36, 36, 544, 64, torch.bfloat16), ("cuda_cores", 2, 288, 0)),
+    ((1, 36, 36, 544, 64, torch.bfloat16), ("cuda_cores", 6, 96, 0)),
+    ((8, 4, 1, 544, 256, torch.bfloat16), ("tensor_cores", 6, 96, 6)),
+    ((1, 4, 1, 544, 256, torch.bfloat16), ("tensor_cores", 6, 96, 6)),
+    ((8, 4, 1, 544, 256, torch.float32), ("cuda_cores", 6, 96, 6)),
+    ((8, 32, 8, 544, 128, torch.bfloat16), ("tensor_cores", 2, 288, 0)),
+    ((1, 4, 1, 32768, 256, torch.bfloat16),
+     ("tensor_cores", 132, 249, 12))], ids=str)
+def test_decode_plan_at_the_serving_shapes(case):
+    shape, want = case
+    assert decode_plan(*shape, H100_SMS) == want
 
 
 def _lse(parts):
@@ -181,6 +261,11 @@ COMBINE_CASES = [
     (1, 9000, 4, 1, 256, [8001], 60),
     (3, 2048, 8, 2, 128, [0, 2048, 129], 132),
     (8, 544, 4, 1, 256, [544, 0, 1, 300, 64, 65, 543, 128], 132),
+    # the grouped-query decode at hd 128 over 8 KV heads: one cluster at
+    # bucket 2 with a row at 0 (G 6), tickets in groups at batch 1 over
+    # mixtral's window (G 5)
+    (2, 544, 48, 8, 128, [544, 0], 132),
+    (1, 4096, 40, 8, 128, [3001], 132),
 ]
 
 
@@ -205,6 +290,28 @@ def test_split_combine_matches_the_plain_version(case):
     # at least one case has a split that holds no live key
     if any(0 < x <= (n_split - 1) * chunk for x in vl):
         assert n_split > 1
+
+
+@pytest.mark.parametrize("case", [(8, 544, 32, 8, 128, [544, 0, 1, 300,
+                                                     64, 65, 543, 128]),
+                                  (1, 4096, 48, 8, 128, [3001]),
+                                  (2, 1001, 40, 8, 128, [17, 1001])],
+                         ids=str)
+def test_split_combine_at_the_tensor_core_plan_matches_the_plain_version(
+        case):
+    """The hd 128 grouped-query decode's split (``split_plan_tc``) and its
+    cluster combine, ragged, with a row at 0 and ranges past valid_len."""
+    B, L, Hq, Hkv, hd, vl = case
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               for shape in ((B, Hq, hd), (B, L, Hkv, hd), (B, L, Hkv, hd)))
+    valid_len = torch.tensor(vl, dtype=torch.int32)
+    n_split, chunk = split_plan_tc(B, Hkv, L, H100_SMS)
+    assert n_split > 1
+    got = split_combine(q, k, v, valid_len, n_split, chunk,
+                        split_groups(n_split, hd))
+    want = decode_attention_plain(q, k, v, valid_len)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
 
 
 def test_split_combine_matches_the_pallas_kernel():

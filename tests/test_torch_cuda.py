@@ -155,14 +155,17 @@ def test_decode_attention_kernel_matches_plain_at_hd256(cuda, case, dtype):
 
 @pytest.mark.parametrize("case", [(1, 32768, 4, 1, 256, 30001),
                                   (8, 544, 4, 1, 256, 500),
-                                  (1, 4096, 8, 1, 128, 4000)], ids=str)
+                                  (1, 4096, 8, 1, 128, 4000),
+                                  (1, 32768, 48, 8, 128, 30001),
+                                  (8, 544, 40, 8, 128, 500)], ids=str)
 def test_decode_attention_replays_equal_bit_for_bit(cuda, case):
     """A decode captured in a CUDA graph at a plan that combines by tickets
     (132 CTAs in groups at a 32k cache; one group at bucket 8; hd 128 past
-    one cluster): two replays and an eager launch after them equal the
-    eager launch before the capture bit for bit, so every launch and
-    replay finds its tickets at zero and no sum depends on arrival
-    order."""
+    one cluster, on the CUDA cores) or over a cluster (the tensor cores at
+    hd 128: G 6 over 8 ranges of 4096 keys, G 5 at bucket 8): two replays
+    and an eager launch after them equal the eager launch before the
+    capture bit for bit, so every launch and replay finds its tickets at
+    zero and no sum depends on arrival order."""
     B, L, Hq, Hkv, hd, n = case
     dt = torch.bfloat16
     q = torch.randn(B, Hq, hd, generator=cuda, device="cuda").to(dt)
@@ -190,7 +193,9 @@ def test_decode_attention_replays_equal_bit_for_bit(cuda, case):
 
 
 @pytest.mark.parametrize("case", [(1, 32768, 4, 1, 256, 30001),
-                                  (1, 4096, 8, 1, 128, 4000)], ids=str)
+                                  (1, 4096, 8, 1, 128, 4000),
+                                  (1, 4096, 48, 8, 128, 4000),
+                                  (2, 544, 32, 8, 128, 500)], ids=str)
 def test_decode_attention_on_two_streams_at_once(cuda, case):
     """Ticket-combined decodes of two inputs launched in turns on two
     streams, so that they overlap on the card: each output equals its own
@@ -270,6 +275,103 @@ def test_decode_attention_split_kernel_matches_plain(cuda, case, dtype):
         if vl[b] == 0:
             assert not out[b].any()
     _close_rows(out, decode_attention_plain(q, k, v, vlen), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", [
+    # (B, L, Hq, Hkv, hd, valid_len): the grouped-query decode at hd 128
+    # (8 KV heads; G 2, 4 minitron-8b, 5 llama4-scout, 6 mixtral-8x22b, 7,
+    # 8), which bf16 runs on the tensor cores at split_plan_tc's plans (one
+    # cluster of 1 to 8 ranges; two stages a warp where a warp has more
+    # than one 16-key block): the serving buckets 8 and 1 over 544 keys,
+    # ragged rows and rows at 0, L no multiple of 16, one range (B 64),
+    # mixtral's window and a 32k cache at batch 1
+    (2, 544, 16, 8, 128, [544, 0]),
+    (8, 544, 32, 8, 128, [544, 0, 1, 300, 64, 65, 543, 128]),
+    (1, 544, 40, 8, 128, [544]),
+    (3, 1001, 48, 8, 128, [1001, 17, 0]),
+    (2, 333, 56, 8, 128, [333, 200]),
+    (2, 9000, 64, 8, 128, [0, 8999]),
+    (1, 4096, 48, 8, 128, [4096]),
+    (1, 4096, 16, 8, 128, [0]),
+    (1, 32768, 32, 8, 128, [30001]),
+    (1, 32768, 64, 8, 128, [32768]),
+    (64, 100, 16, 8, 128, [100] * 63 + [0]),
+], ids=str)
+def test_decode_attention_kernel_matches_plain_at_hd128_grouped(cuda, case,
+                                                                dtype):
+    test_decode_attention_split_kernel_matches_plain(cuda, case, dtype)
+
+
+@pytest.mark.parametrize("plan", [(16, 256), (12, 350), (40, 103)], ids=str)
+@pytest.mark.parametrize("case", [(1, 4096, 48, 8, 128, [4096]),
+                                  (2, 4001, 32, 8, 128, [0, 3999])], ids=str)
+def test_decode_attention_tensor_cores_past_one_cluster_at_hd128(
+        cuda, monkeypatch, case, plan):
+    """The hd 128 tensor-core body at plans past one cluster, which
+    ``split_plan_tc`` does not give but the body takes (the ticket combine
+    in groups, as at hd 256), ranges no whole number of tiles among them,
+    against the plain version."""
+    import importlib
+    dm = importlib.import_module("repro_torch.kernels.decode_attention")
+    monkeypatch.setattr(dm, "split_plan_tc", lambda *_: plan)
+    B, L, Hq, Hkv, hd, vl = case
+    assert plan[0] * plan[1] >= L and dm.split_groups(plan[0], hd) > 0
+    test_decode_attention_split_kernel_matches_plain(cuda, case,
+                                                     torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", [(64, 1), (128, 1), (128, 2), (128, 6),
+                                  (128, 8), (256, 4), (96, 4)], ids=str)
+def test_decode_attention_runs_the_instance_decode_instance_names(cuda, case,
+                                                                 dtype):
+    """The body that a launch runs on the card, by the profiler's kernel
+    name, is the one ``decode_instance`` names: ``dec_kernel_tc`` for bf16
+    at hd 256 and at hd 128 with 2 <= G <= 8, ``dec_kernel`` else."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.decode_attention import decode_instance
+    hd, G = case
+    Hkv = 8 if hd == 128 else 1
+    q = torch.randn(2, G * Hkv, hd, generator=cuda, device="cuda").to(dtype)
+    k = torch.randn(2, 300, Hkv, hd, generator=cuda, device="cuda").to(dtype)
+    vlen = torch.full((2,), 300, dtype=torch.int32, device="cuda")
+    decode_attention(q, k, k, vlen)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        decode_attention(q, k, k, vlen)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if "dec_kernel" in e.key]
+    assert names, "the profiler saw no decode kernel"
+    on_tc = all("dec_kernel_tc" in n for n in names)
+    assert on_tc == (decode_instance(hd, G, dtype) == "tensor_cores"), names
+
+
+@pytest.mark.parametrize("hd", [128, 256])
+def test_bf16_decode_runs_its_grouped_products_on_the_tensor_cores(cuda, hd):
+    """``dec_kernel_tc`` at hd 128 and 256 holds HMMA (``mma.sync``)
+    instructions in its SASS and spills nothing (ptxas)."""
+    import shutil
+    import subprocess
+
+    from repro_torch.kernels import _build
+    _build.build(["decode_attention"])
+    inst = f"dec_kernel_tcILi{hd}E"
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass",
+                           str(_build.library_path("decode_attention"))],
+                          capture_output=True, text=True, check=True).stdout
+    fn, hmma = None, 0
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1]
+        elif fn and inst in fn and "HMMA" in line:
+            hmma += 1
+    assert hmma > 0
+    spills = SMOKE.ptxas_spills(
+        _build.ptxas_log("decode_attention").read_text())
+    assert not [f for f in spills if inst in f], spills
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

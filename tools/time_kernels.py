@@ -1,6 +1,6 @@
 """Time the port's three CUDA kernels of a checkout on the card.
 
-    python3 tools/time_kernels.py ROOT [TAG] [--hd256]
+    python3 tools/time_kernels.py ROOT [TAG] [--hd256 | --hd128 | --hd128-plans]
 
 imports ``repro_torch`` from ``ROOT/src`` (building its kernels into
 ``ROOT/build``) and times, bf16, at the serving shapes that
@@ -20,7 +20,16 @@ causal) and at batch 1 over 8192 and 32768 tokens, and decode at buckets
 8 and 1 (L 544) and at batch 1 over 32768 and 131072 keys, each beside
 SDPA on the same inputs (``*_sdpa_*``), the long decodes also beside a
 plain read of K and V and with a clean L2, and each decode's error
-against its plain version (``hd256_times``).  Each time is the
+against its plain version (``hd256_times``).  With ``--hd128`` it times
+the grouped-query attention at hd 128 (8 KV heads; G = 4, 5, 6 query
+heads each: minitron-8b, llama4-scout, mixtral-8x22b): decode at buckets
+8 and 1 over 544 keys and at batch 1 over 4096 and 32768 keys, flash at
+buckets 8 and 1 (S 512, causal), and flash at phi-3's hd 96 (32 heads,
+G = 1), each beside SDPA and its bound, the decodes at bucket 8 beside
+their plain version, each decode's error against its plain version, and
+the decode instances' registers and spills from the compiler's report
+(``hd128_times``); with ``--hd128-plans`` that decode at other splits of
+the cache than the wrapper's plan (``hd128_plans``).  Each time is the
 median of 25 CUDA-event timings, L2 flushed, a device-side sleep ahead of
 each.  It prints one JSON line.  Run it on several checkouts in turns
 (A, B, B, A) in one call to compare them on one card.
@@ -65,8 +74,7 @@ def time_ms(fn, flush, runs=25, warmup=3, sleep=1_000_000, host=None,
     return sorted(ts)[len(ts) // 2]
 
 
-def hd256_times(flash_attention, decode_attention, decode_attention_plain,
-                rnd, flush):
+def hd256_times(flash_attention, dec_mod, rnd, flush):
     """gemma3-1b's hd 256 attention, the kernels beside SDPA: flash at
     buckets 8, 4, 2, 1 (S 512) and at batch 1 over 8192 and 32768 tokens
     (``flash256_*_B1_S*``), and its one-wave fit (128 CTAs of 128 and of
@@ -75,11 +83,20 @@ def hd256_times(flash_attention, decode_attention, decode_attention_plain,
     544) and at batch 1 over 32768 and 131072 keys, there also beside a
     plain read of the same K and V (``k.amax(), v.amax()``), and again
     with the L2 emptied by a read of the flush buffer in place of a write
-    (so that no dirty line is written back during the timing); and each
+    (so that no dirty line is written back during the timing); at L 544,
+    where the checkout has ``decode_plan`` (whose tensor-core body can
+    combine over a cluster), also over a cluster and in one ticket group
+    whatever the wrapper picks, then the wrapper's combine again
+    (``decode256_cluster_ms_*``, ``decode256_ticket_ms_*``,
+    ``decode256_again_ms_*``); and each
     decode's largest error against its plain version, absolute and as a
     share of the row's norm (``decode256_err_*``, ``decode256_row_err_*``).
     """
     F = torch.nn.functional
+    decode_attention = dec_mod.decode_attention
+    decode_attention_plain = dec_mod.decode_attention_plain
+    groups = dec_mod.split_groups
+    both = hasattr(dec_mod, "decode_plan")
     out = {}
     for B, S in ((8, 512), (4, 512), (2, 512), (1, 512), (1, 8192),
                  (1, 32768)):
@@ -123,10 +140,136 @@ def hd256_times(flash_attention, decode_attention, decode_attention_plain,
             if L > 544:
                 out[f"decode256_{name}ms_B{B}_L{L}_clean"] = time_ms(
                     fn, flush, clean=True)
+        if L == 544 and both:
+            for name, forced in (("cluster_", lambda n_split, hd: 0),
+                                 ("ticket_", lambda n_split, hd: n_split)):
+                dec_mod.split_groups = forced
+                try:
+                    out[f"decode256_{name}ms_B{B}_L{L}"] = time_ms(
+                        runs[""], flush)
+                finally:
+                    dec_mod.split_groups = groups
+            out[f"decode256_again_ms_B{B}_L{L}"] = time_ms(runs[""], flush)
     return out
 
 
-def main(root: Path, tag: str, hd256: bool = False) -> int:
+HBM_BYTES_PER_S, BF16_FLOPS = 3.35e12, 989e12   # H100 SXM, data sheet
+
+
+def bound_ms(nbytes, flops):
+    """The least time of the card: bytes at its memory rate or operations at
+    its bf16 tensor-core rate, whichever is longer."""
+    return max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+
+
+def hd128_times(flash_attention, decode_attention, decode_attention_plain,
+                rnd, flush, ptxas):
+    """The grouped-query attention at hd 128 over 8 KV heads, G = 4, 5, 6
+    (minitron-8b, llama4-scout, mixtral-8x22b), beside SDPA: decode at
+    buckets 8 and 1 over 544 keys and at batch 1 over 4096 (mixtral's
+    window) and 32768 keys (``decode128_G*``), its plain version at bucket
+    8 (behind a 25 ms device sleep, as phase 4), its error against the
+    plain version, absolute and as a share of the row's norm; flash at
+    buckets 8 and 1 (S 512, causal; ``flash128_G*``), and at phi-3's hd 96
+    with 32 heads, G = 1 (``flash96``); each case's bound (bytes at 3.35
+    TB/s or operations at 989 TFLOP/s); and the registers and spills that
+    ``ptxas`` reports for the decode kernel's hd 128 instances."""
+    F = torch.nn.functional
+    out = {}
+    for G in (4, 5, 6):
+        Hq = 8 * G
+        for B, L in ((8, 544), (1, 544), (1, 4096), (1, 32768)):
+            key = f"decode128_G{G}_B{B}_L{L}"
+            q = rnd(B, Hq, 128).bfloat16()
+            k, v = rnd(B, L, 8, 128).bfloat16(), rnd(B, L, 8, 128).bfloat16()
+            vlen = torch.full((B,), L, dtype=torch.int32, device=q.device)
+            got = decode_attention(q, k, v, vlen).float()
+            want = decode_attention_plain(q, k, v, vlen).float()
+            d = got - want
+            out[f"{key}_err"] = d.abs().max().item()
+            out[f"{key}_row_err"] = (d.norm(dim=-1)
+                                     / want.norm(dim=-1)).max().item()
+            out[f"{key}_ms"] = time_ms(
+                lambda: decode_attention(q, k, v, vlen), flush)
+            out[f"{key}_sdpa_ms"] = time_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                    enable_gqa=True), flush)
+            if B == 8:
+                out[f"{key}_plain_ms"] = time_ms(
+                    lambda: decode_attention_plain(q, k, v, vlen), flush,
+                    sleep=50_000_000)
+            # q read and o written once, every live K/V row once, valid_len
+            out[f"{key}_bound_ms"] = bound_ms(
+                4 * q.numel() + 2 * 2 * B * L * 8 * 128 + 4 * B,
+                4 * 128 * Hq * B * L)
+    for name, Hq, Hkv, hd in (("flash128_G4", 32, 8, 128),
+                              ("flash128_G5", 40, 8, 128),
+                              ("flash128_G6", 48, 8, 128),
+                              ("flash96", 32, 32, 96)):
+        for B in (8, 1):
+            key = f"{name}_B{B}"
+            q = rnd(B, 512, Hq, hd).bfloat16()
+            k, v = (rnd(B, 512, Hkv, hd).bfloat16() for _ in range(2))
+            out[f"{key}_ms"] = time_ms(
+                lambda: flash_attention(q, k, v, causal=True), flush)
+            out[f"{key}_sdpa_ms"] = time_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    is_causal=True, enable_gqa=Hkv != Hq), flush)
+            out[f"{key}_bound_ms"] = bound_ms(
+                2 * (2 * q.numel() + 2 * k.numel()),
+                4 * hd * B * Hq * 512 * 513 // 2)
+    # "Function properties for <mangled name>", then its register line and
+    # its spill line
+    regs, fn = {}, None
+    for ln in ptxas.splitlines():
+        if "Function properties for" in ln:
+            fn = ln.split("Function properties for")[1].strip()
+        elif fn and "Li128E" in fn and ("Used " in ln or "spill" in ln):
+            regs.setdefault(fn, []).append(ln.strip())
+    out["decode128_ptxas"] = regs
+    return out
+
+
+def hd128_plans(dec_mod, rnd, flush):
+    """The grouped-query decode at hd 128 (8 KV heads) at other plans than
+    the wrapper's (``split_plan_tc``, or ``split_plan`` in a checkout
+    without it): at buckets 8 (G 4 and 6) and 1 (G 6) over 544 keys
+    and at batch 1 (G 6) over 4096 and 32768 keys, every ``n_split`` of 1,
+    2, 3, 4, 6, 8 (one cluster, whole 32-key tiles), 16, 32 and 64 (the
+    ticket combine) that cuts the cache into that many ranges
+    (``plan_G*_B*_L*_{n_split}x{chunk}``), the plan swapped for a fixed
+    one, which changes nothing but the ranges the wrapper passes."""
+    out = {}
+    planners = (dec_mod.split_plan, getattr(dec_mod, "split_plan_tc", None))
+    try:
+        for B, L, G in ((8, 544, 4), (8, 544, 6), (1, 544, 6), (1, 4096, 6),
+                        (1, 32768, 6)):
+            q = rnd(B, 8 * G, 128).bfloat16()
+            k, v = rnd(B, L, 8, 128).bfloat16(), rnd(B, L, 8, 128).bfloat16()
+            vlen = torch.full((B,), L, dtype=torch.int32, device=q.device)
+            for n in (1, 2, 3, 4, 6, 8, 16, 32, 64):
+                chunk = -(-L // n)
+                if n <= 8:
+                    chunk = -(-chunk // 32) * 32
+                if -(-L // chunk) != n:
+                    continue
+                dec_mod.split_plan = dec_mod.split_plan_tc = \
+                    lambda *_, p=(n, chunk): p
+                out[f"plan_G{G}_B{B}_L{L}_{n}x{chunk}"] = time_ms(
+                    lambda: dec_mod.decode_attention(q, k, v, vlen), flush)
+    finally:
+        dec_mod.split_plan = planners[0]
+        if planners[1] is None:
+            del dec_mod.split_plan_tc
+        else:
+            dec_mod.split_plan_tc = planners[1]
+    return out
+
+
+def main(root: Path, tag: str, hd256: bool = False,
+         hd128: bool = False, plans: bool = False) -> int:
     if not torch.cuda.is_available():
         print("time_kernels: CUDA is not available", file=sys.stderr)
         return 1
@@ -147,9 +290,26 @@ def main(root: Path, tag: str, hd256: bool = False) -> int:
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
 
+    if plans:
+        out.update(hd128_plans(dec_mod, rnd, flush))
+        print(json.dumps(out), flush=True)
+        return 0
+    if hd128:
+        from repro_torch.kernels import _build
+        # one launch builds the decode kernel, whose compiler report is read
+        decode_attention(*(rnd(1, 8, 128).bfloat16(),
+                           rnd(1, 16, 8, 128).bfloat16(),
+                           rnd(1, 16, 8, 128).bfloat16()),
+                         torch.full((1,), 16, dtype=torch.int32,
+                                    device="cuda"))
+        out.update(hd128_times(flash_attention, decode_attention,
+                               decode_attention_plain, rnd, flush,
+                               _build.ptxas_log("decode_attention")
+                               .read_text()))
+        print(json.dumps(out), flush=True)
+        return 0
     if hd256:
-        out.update(hd256_times(flash_attention, decode_attention,
-                               decode_attention_plain, rnd, flush))
+        out.update(hd256_times(flash_attention, dec_mod, rnd, flush))
         print(json.dumps(out), flush=True)
         return 0
     for B in (8, 1):
@@ -203,8 +363,11 @@ def main(root: Path, tag: str, hd256: bool = False) -> int:
 
 
 if __name__ == "__main__":
-    args = [a for a in sys.argv[1:] if a != "--hd256"]
+    flags = ("--hd256", "--hd128", "--hd128-plans")
+    args = [a for a in sys.argv[1:] if a not in flags]
     if len(args) not in (1, 2):
         sys.exit(__doc__)
     sys.exit(main(Path(args[0]), args[1] if len(args) == 2 else "",
-                  hd256="--hd256" in sys.argv[1:]))
+                  hd256="--hd256" in sys.argv[1:],
+                  hd128="--hd128" in sys.argv[1:],
+                  plans="--hd128-plans" in sys.argv[1:]))
