@@ -171,6 +171,28 @@ FA_CASES = [
     (8, 512, 512, 32, 8, 128, True, 0),
     (1, 512, 512, 48, 8, 128, True, 0),
     (8, 512, 512, 32, 32, 96, True, 0),
+    # the persistent body (bf16 at hd 72, 96, 128; flash_body): G 1, 4, 5,
+    # 6, 8 at more work tiles than CTAs (buckets 8, 4, 2 and a long
+    # prompt, whose CTAs walk several tiles) and fewer (batch 1, a short
+    # prompt); Sq no multiple of 128, Sq < Sk, Sq = 1, a window that cuts
+    # a tile, non-causal; phase 4's batch-1 prompts of 4096 tokens (G 6
+    # under mixtral's window)
+    (8, 512, 512, 40, 8, 128, True, 0),
+    (8, 512, 512, 48, 8, 128, True, 0),
+    (4, 512, 512, 40, 8, 128, True, 0),
+    (2, 512, 512, 32, 32, 96, True, 0),
+    (1, 512, 512, 32, 8, 128, True, 0),
+    (1, 512, 512, 32, 32, 96, True, 0),
+    (3, 300, 300, 64, 8, 128, True, 0),
+    (2, 1, 700, 48, 8, 128, True, 0),
+    (2, 190, 450, 32, 8, 96, True, 0),
+    (4, 333, 333, 24, 4, 72, True, 100),
+    (2, 250, 250, 16, 16, 72, False, 0),
+    (1, 1000, 1000, 40, 8, 128, True, 200),
+    (2, 640, 640, 8, 1, 128, False, 0),
+    (1, 4096, 4096, 32, 8, 128, True, 0),
+    (1, 4096, 4096, 48, 8, 128, True, 4096),
+    (1, 4096, 4096, 32, 32, 96, True, 0),
 ]
 # (B, L, Hq, Hkv, hd, zero_row): tests/test_kernels.py DEC_CASES (block
 # sizes dropped), the minicpm-2b decode shape at buckets 8 and 1 (the most
@@ -1897,7 +1919,7 @@ def main() -> int:
     # cores
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     report["hgmma"] = {}
-    for src, kern in (("flash_attention", "fa_kernel_wgmma"),
+    for src, kern in (("flash_attention", "fa_kernel_"),
                       ("ssd_scan", "ssd_kernel_wgmma")):
         sass = subprocess.run(
             [cuobjdump, "-sass", str(_build.library_path(src))],
@@ -1926,6 +1948,38 @@ def main() -> int:
                 if spilled:
                     raise AssertionError(f"the bf16 flash kernel at hd 256 "
                                          f"spills: {spilled}")
+            # the persistent body (hd 72, 96, 128): HGMMA, no spill, no
+            # wgmma that ptxas serialises (its "Potential Performance Loss"
+            # reports, C7510-C7520), and the 168 registers a thread at
+            # entry that setmaxnreg's exchange (40 producer, 232 consumer)
+            # adds up to
+            log_text = _build.ptxas_log(src).read_text()
+            report["flash_persistent"] = {}
+            for hd in (72, 96, 128):
+                inst = f"fa_kernel_persistILi{hd}E"
+                n = sum(c for f, c in hgmma.items() if inst in f)
+                spilled = [f for f in report["spills"][src] if inst in f]
+                # both walk orders (the GROUPS template argument)
+                regs, fn = [], None
+                for ln in log_text.splitlines():
+                    if "Function properties for" in ln:
+                        fn = ln.split("Function properties for")[1]
+                    elif fn and inst in fn and "Used " in ln:
+                        regs.append(int(ln.split("Used ")[1].split()[0]))
+                        fn = None
+                serial = [ln for ln in log_text.splitlines()
+                          if "serialized" in ln and inst in ln]
+                report["flash_persistent"][hd] = {
+                    "hgmma": n, "registers": regs, "spills": spilled,
+                    "serialised": serial}
+                log(f"[build] flash_attention bf16 hd {hd} "
+                    f"(fa_kernel_persist): {n} HGMMA instructions, {regs} "
+                    f"registers, {len(spilled)} with spills, "
+                    f"{len(serial)} serialised-wgmma reports")
+                if not n or spilled or serial or regs != [168, 168]:
+                    raise AssertionError(
+                        f"the persistent flash body at hd {hd}: {n} HGMMA, "
+                        f"spills {spilled}, serialised {serial}")
         report["hgmma"][src] = hgmma
     # the bf16 decode's tensor-core body (dec_kernel_tc: mma.sync, HMMA in
     # SASS) at hd 128 (2 <= G <= 8) and 256, with no spill
@@ -2059,19 +2113,23 @@ def main() -> int:
         return {"bound_ms": max(b_ms, f_ms),
                 "bound_by": "bytes" if b_ms >= f_ms else "operations"}
 
-    def time_fa(B, plain=True, S=512, H=36, hd=64, Hkv=None):
+    def time_fa(B, plain=True, S=512, H=36, hd=64, Hkv=None, window=0):
         """A join's attention at bucket B (minicpm-2b's by default):
-        kernel, plain version and SDPA in turn, on the same inputs."""
+        kernel, plain version and SDPA in turn, on the same inputs.  A
+        window no shorter than S masks nothing that causality does not (its
+        code path runs), so SDPA's causal call computes the same function."""
+        assert window == 0 or window >= S
         Hkv = Hkv or H
         q = rnd(B, S, H, hd, dtype=bf)
         k, v = (rnd(B, S, Hkv, hd, dtype=bf) for _ in range(2))
-        t = {"ms": time_ms(lambda: flash_attention(q, k, v, causal=True)),
+        t = {"ms": time_ms(lambda: flash_attention(q, k, v, causal=True,
+                                                   window=window)),
              "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                  q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                  is_causal=True, enable_gqa=Hkv != H))}
         if plain:
             t["plain_ms"] = time_ms(lambda: flash_attention_plain(
-                q, k, v, causal=True), sleep=PLAIN_SLEEP)
+                q, k, v, causal=True, window=window), sleep=PLAIN_SLEEP)
         # q, k, v read once and o (q's shape) written once; causal pairs
         t.update(bound((2 * q.numel() + k.numel() + v.numel())
                        * q.element_size(),
@@ -2154,13 +2212,27 @@ def main() -> int:
     # The grouped-query attention at hd 128 over 8 KV heads (minitron-8b G
     # 4, llama4-scout G 5, mixtral-8x22b G 6): the decode at buckets 8 and
     # 1 over 544 keys and at batch 1 over mixtral's window (4096 keys) and
-    # a 32k cache, the join's attention at buckets 8 and 1; and phi-3's hd
-    # 96 join (32 heads, G 1)
+    # a 32k cache; the join's attention (the persistent body) at buckets 8,
+    # 4, 2 and 1 and at batch 1 over 4096 tokens (G 4, and G 6 under
+    # mixtral's window); and phi-3's hd 96 join (32 heads, G 1) likewise
     def with_bucket1(t8, t1):
         t8.update(ms_bucket1=t1["ms"], library_ms_bucket1=t1["library_ms"],
                   plain_ms_bucket1=t1["plain_ms"],
                   bound_ms_bucket1=t1["bound_ms"])
         return t8
+
+    def flash_rows(H, Hkv, hd, long_window):
+        t = with_bucket1(*(time_fa(b, H=H, Hkv=Hkv, hd=hd) for b in (8, 1)))
+        for b in (4, 2):
+            u = time_fa(b, plain=False, H=H, Hkv=Hkv, hd=hd)
+            t.update({f"ms_bucket{b}": u["ms"],
+                      f"library_ms_bucket{b}": u["library_ms"],
+                      f"bound_ms_bucket{b}": u["bound_ms"]})
+        if long_window is not None:
+            t["long_prompt"] = {4096: dict(
+                time_fa(1, plain=False, S=4096, H=H, Hkv=Hkv, hd=hd,
+                        window=long_window), window=long_window)}
+        return t
 
     hd128 = {"decode_attention": {}, "flash_attention": {}}
     for G in (4, 5, 6):
@@ -2168,10 +2240,9 @@ def main() -> int:
             *(time_dec(b, L=544, H=8 * G, Hkv=8, hd=128) for b in (8, 1)))
         t["long_context"] = {L: time_dec(1, L=L, H=8 * G, Hkv=8, hd=128)
                              for L in (4096, 32768)}
-        hd128["flash_attention"][f"G{G}"] = with_bucket1(
-            *(time_fa(b, H=8 * G, Hkv=8, hd=128) for b in (8, 1)))
-    hd128["flash_attention"]["hd96"] = with_bucket1(
-        *(time_fa(b, H=32, hd=96) for b in (8, 1)))
+        hd128["flash_attention"][f"G{G}"] = flash_rows(
+            8 * G, 8, 128, {4: 0, 5: None, 6: 4096}[G])
+    hd128["flash_attention"]["hd96"] = flash_rows(32, 32, 96, 0)
     for kname, rows in hd128.items():
         for inst, t in rows.items():
             cases = [(f"B8 {544 if kname == 'decode_attention' else 512}",
@@ -2182,6 +2253,12 @@ def main() -> int:
             cases += [(f"B1 L {L}", u["ms"], u["plain_ms"], u["library_ms"],
                        u["bound_ms"])
                       for L, u in t.get("long_context", {}).items()]
+            cases += [(f"B{b}", t[f"ms_bucket{b}"], float("nan"),
+                       t[f"library_ms_bucket{b}"], t[f"bound_ms_bucket{b}"])
+                      for b in (4, 2) if f"ms_bucket{b}" in t]
+            cases += [(f"B1 S {S} window {u['window']}", u["ms"],
+                       float("nan"), u["library_ms"], u["bound_ms"])
+                      for S, u in t.get("long_prompt", {}).items()]
             log(f"[timing] {kname} "
                 + ("hd 96, 32 heads, G 1" if inst == "hd96" else
                    f"hd 128, {inst}, {8 * int(inst[1:])} heads over 8 KV "
@@ -2192,25 +2269,29 @@ def main() -> int:
                             for c, ms, pm, lm, bm in cases)
                 + f" ({t['bound_by']}); {smi}")
 
-    # What one CTA pays: 36 q tiles of 128 rows (one CTA per SM), not
-    # causal, over 1 and 32 K/V tiles of 64 keys; the fit gives the fixed
-    # cost of a CTA and the cost of each further tile, beside SDPA's.
-    fit = {}
-    for Sk in (64, 2048):
-        q1 = rnd(1, 128, 36, 64, dtype=bf)
-        k1, v1 = rnd(1, Sk, 36, 64, dtype=bf), rnd(1, Sk, 36, 64, dtype=bf)
-        fit[Sk] = (time_ms(lambda: flash_attention(q1, k1, v1, causal=False)),
-                   time_ms(lambda: F.scaled_dot_product_attention(
-                       q1.transpose(1, 2), k1.transpose(1, 2),
-                       v1.transpose(1, 2))))
-    per_tile = [(fit[2048][i] - fit[64][i]) / 31 for i in (0, 1)]
-    report["flash_cta_fit"] = {"fixed_ms": [fit[64][0] - per_tile[0],
-                                            fit[64][1] - per_tile[1]],
-                               "per_tile_ms": per_tile}
-    log(f"[timing] flash_attention, one CTA per SM: fixed "
-        f"{fit[64][0] - per_tile[0]:.4f} ms + {per_tile[0]:.5f} ms per "
-        f"64-key tile; SDPA {fit[64][1] - per_tile[1]:.4f} ms + "
-        f"{per_tile[1]:.5f} ms; {smi}")
+    # What one CTA pays: q tiles of 128 rows, fewer than the SMs (36 heads
+    # of hd 64; 32 of hd 128 over 8 KV heads, the persistent body with one
+    # work tile a CTA), not causal, over 1 and 32 K/V tiles of 64 keys;
+    # the fit gives the fixed cost of a CTA and the cost of each further
+    # tile, beside SDPA's.
+    report["flash_cta_fit"] = {}
+    for hd, H, Hkv in ((64, 36, 36), (128, 32, 8)):
+        fit = {}
+        for Sk in (64, 2048):
+            q1 = rnd(1, 128, H, hd, dtype=bf)
+            k1, v1 = (rnd(1, Sk, Hkv, hd, dtype=bf) for _ in range(2))
+            fit[Sk] = (time_ms(lambda: flash_attention(q1, k1, v1,
+                                                       causal=False)),
+                       time_ms(lambda: F.scaled_dot_product_attention(
+                           q1.transpose(1, 2), k1.transpose(1, 2),
+                           v1.transpose(1, 2), enable_gqa=H != Hkv)))
+        per_tile = [(fit[2048][i] - fit[64][i]) / 31 for i in (0, 1)]
+        fixed = [fit[64][i] - per_tile[i] for i in (0, 1)]
+        report["flash_cta_fit"][hd] = {"fixed_ms": fixed,
+                                       "per_tile_ms": per_tile}
+        log(f"[timing] flash_attention hd {hd}, {H} CTAs: fixed "
+            f"{fixed[0]:.4f} ms + {per_tile[0]:.5f} ms per 64-key tile; "
+            f"SDPA {fixed[1]:.4f} ms + {per_tile[1]:.5f} ms; {smi}")
 
     def time_ssd(B, plain=True, S=512, H=32, P=64, N=128, Q=64):
         """The mamba2-370m join's SSD scan at bucket B; then the kernel at
@@ -2524,8 +2605,10 @@ def main() -> int:
              "src/repro/kernels/flash_attention.py:98", 13,
              "bf16: wgmma for both products, TMA loads and store, "
              "heaviest q tiles first, each warpgroup 64 q rows and all "
-             "output columns (hd 256: CTAs of 64 or 128 rows by the grid); "
-             "f32: CUDA cores"),
+             "output columns (hd 72-128: a persistent grid of one CTA an "
+             "SM walking 128-row work tiles over 128-key K/V tiles, a "
+             "producer warpgroup, two consumer warpgroups in turns; hd "
+             "256: CTAs of 64 or 128 rows by the grid); f32: CUDA cores"),
             ("decode_attention", dec, "decode_attention", "minicpm-2b",
              (8, 544, 36, 36, 64, False),
              "src/repro_torch/csrc/decode_attention.cu",
@@ -2594,8 +2677,8 @@ def main() -> int:
         # measured for its moe app (mixtral-8x22b)
         cases128 = (
             {"G4": (8, 512, 512, 32, 8, 128, True, 0),
-             "G5": (2, 128, 128, 40, 8, 128, True, 0),
-             "G6": (1, 512, 512, 48, 8, 128, True, 0),
+             "G5": (8, 512, 512, 40, 8, 128, True, 0),
+             "G6": (8, 512, 512, 48, 8, 128, True, 0),
              "hd96": (8, 512, 512, 32, 32, 96, True, 0)}
             if kname == "flash_attention" else
             {"G4": (8, 544, 32, 8, 128, True),
@@ -2611,6 +2694,11 @@ def main() -> int:
                           if inst == "G6" else {}),
                        max_abs_err=errs[kname][(case, "bfloat16")])
             for inst, case in cases128.items()}
+        if kname == "flash_attention":
+            # the persistent body's registers (phase 2) and the one-CTA
+            # fits at hd 64 and 128 (phase 4)
+            kernels[-1].update(persistent=report["flash_persistent"],
+                               cta_fit=report["flash_cta_fit"])
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     out = ROOT / "build"

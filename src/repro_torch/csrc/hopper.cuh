@@ -13,7 +13,9 @@
 //
 // Tiles sit in shared memory as bf16 in 64-column (128-byte) panels, row r
 // at +r*128, its 16-byte chunk c at chunk c ^ (r % 8): the 128-byte swizzle
-// that the tensor maps write and the wgmma descriptors name.
+// that the tensor maps write and the wgmma descriptors name.  (Flash's V at
+// hd 96 sits in 32-column panels with the 64-byte swizzle, so that P V can
+// be 96 columns wide.)
 #pragma once
 
 #include <cuda.h>
@@ -45,6 +47,14 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes,
       "{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n"
       "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n}\n" ::
           "r"(bar), "r"(bytes), "r"((int)on)
+      : "memory");
+}
+// one arrival on `bar` (an "empty" barrier that its consumers release)
+__device__ __forceinline__ void mbar_arrive(uint32_t bar, bool on) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
+      "r"((int)on)
       : "memory");
 }
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
@@ -113,12 +123,14 @@ __device__ __forceinline__ void bulk_wait_read(bool on) {
 }
 
 // -- wgmma --------------------------------------------------------------------
-// shared-memory descriptor, 128-byte swizzle; offsets in bytes
+// shared-memory descriptor; offsets in bytes; swizzle 1: 128-byte, 2:
+// 64-byte (the tensor map's CU_TENSOR_MAP_SWIZZLE_128B / _64B)
 __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
+                                              uint32_t sbo,
+                                              uint64_t swizzle = 1) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) |
          ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (swizzle << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -157,6 +169,24 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
 }
 
+// d (64x128 f32) (+)= A (64x16, smem) * B (16x128, smem), as wgmma_ss
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, "
+      "%67, %68;\n}\n"
+      : REPRO_R8(0), REPRO_R8(8), REPRO_R8(16), REPRO_R8(24), REPRO_R8(32),
+        REPRO_R8(40), REPRO_R8(48), REPRO_R8(56)
+      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+
 // d (64xN f32) += A (64x16 bf16, registers: four bf16 pairs) * B (16xN,
 // smem); TB: B is MN-major (transpose bit)
 template <int TB>
@@ -169,6 +199,22 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
       "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : REPRO_R8(0), REPRO_R8(8), REPRO_R8(16), REPRO_R8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(TB));
+}
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[48], const uint32_t* a,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, %54;\n}\n"
+      : REPRO_R8(0), REPRO_R8(8), REPRO_R8(16), REPRO_R8(24), REPRO_R8(32),
+        REPRO_R8(40)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
         "n"(TB));
 }
@@ -251,21 +297,24 @@ inline EncodeTiled encode_tiled() {
 }
 
 // The (B, S, H, hd) tensor as a 4-D map, innermost first, with its own
-// strides; boxes of 64 columns x `rows` rows of one head and batch row,
-// 128-byte swizzle, zeros outside the tensor.
+// strides; boxes of `cols` columns x `rows` rows of one head and batch row,
+// zeros outside the tensor; 64 columns (128 bytes) with the 128-byte
+// swizzle, or 32 (64 bytes) with the 64-byte one.
 inline bool make_map_bshd(CUtensorMap* map, const void* ptr, int hd, int H,
-                          int S, int B, int rows) {
+                          int S, int B, int rows, int cols = 64) {
   const EncodeTiled enc = encode_tiled();
   if (!enc) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)H, (cuuint64_t)S,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, (cuuint64_t)H * hd * 2,
                                  (cuuint64_t)S * H * hd * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
              dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                        : CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

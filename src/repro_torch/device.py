@@ -14,6 +14,7 @@ import torch
 DeviceLike = Union[str, torch.device, None]
 
 _sm_counts: Dict[int, int] = {}     # device index -> streaming multiprocessors
+_l2_bytes: Dict[int, int] = {}      # device index -> L2 cache bytes
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
@@ -41,3 +42,13 @@ def sm_count(device: torch.device) -> int:
         _sm_counts[idx] = torch.cuda.get_device_properties(
             idx).multi_processor_count
     return _sm_counts[idx]
+
+
+def l2_bytes(device: torch.device) -> int:
+    """Bytes of a CUDA device's L2 cache, which the flash kernel's walk
+    order (``flash_order``) weighs a launch's K/V against."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _l2_bytes:
+        _l2_bytes[idx] = torch.cuda.get_device_properties(idx).L2_cache_size
+    return _l2_bytes[idx]

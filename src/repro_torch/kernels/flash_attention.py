@@ -7,6 +7,16 @@ the implementation from the device of its inputs: CPU and meta tensors go to
 :func:`flash_attention_plain`, CUDA tensors launch the kernel or raise.
 ``flash_attention.launches`` counts kernel launches.
 
+On the card the kernel has four bodies, and :func:`flash_body` alone picks
+one from the head dim and the dtype: bf16 at hd 32 and 64 runs ``narrow``
+(one CTA per 128 q rows, two CTAs an SM), bf16 at hd 72, 96 and 128
+``persistent`` (at most one CTA an SM, :func:`flash_ctas` of them, each
+walking many 128-row work tiles in :func:`flash_order`'s order, so that one
+tile's loads and store overlap another's products), bf16 at hd 256 ``hd256`` (64 or 128 q rows a CTA,
+:func:`flash_block_q`), and float32 ``f32`` (the CUDA cores).  The C
+launcher takes the body as it is given and refuses one it was not built
+for at that head dim; there is no other route for a CUDA tensor.
+
 Training: when grad is enabled and q, k or v requires it, a CUDA call goes
 through :class:`FlashAttentionFn`, whose forward is the same kernel launch
 and whose backward recomputes ``ref.flash_attention_ref`` under autograd.
@@ -22,21 +32,62 @@ import ctypes
 import torch
 
 from . import _build
-from ..device import sm_count
+from ..device import l2_bytes, sm_count
 from .ref import PLAIN_DEVICES, flash_attention_ref
 
 HEAD_DIMS = (32, 64, 72, 96, 128, 256)
 DTYPES = (torch.bfloat16, torch.float32)
 # pointers, then ints, then the stream: the C launcher's parameters
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+# the C launcher's bodies, in its numbering (csrc/flash_attention.cu, Body)
+BODIES = ("narrow", "persistent", "hd256", "f32")
 # q rows per CTA of the bf16 kernel; at hd 256 the wrapper picks from both
 BLOCK_Q = 128
 BLOCK_Q_HD256 = (64, 128)
+# CTAs an SM of the persistent body (its 193 KB of shared memory at hd 128)
+PERSISTENT_CTAS_PER_SM = 1
+
+
+def flash_body(hd: int, dtype: torch.dtype) -> str:
+    """The kernel body that runs ``hd`` and ``dtype`` on the card: ``"f32"``
+    for float32, ``"hd256"`` at hd 256, ``"narrow"`` at hd 32 and 64 (two
+    CTAs an SM overlap one another), ``"persistent"`` at hd 72, 96 and 128,
+    where one CTA fills an SM and so walks many work tiles."""
+    if dtype == torch.float32:
+        return "f32"
+    if hd == 256:
+        return "hd256"
+    return "narrow" if hd <= 64 else "persistent"
+
+
+def flash_ctas(B: int, Sq: int, Hq: int, hd: int, sm_count: int) -> int:
+    """The persistent body's grid: one CTA a work tile (128 q rows of one
+    head and batch row) up to ``PERSISTENT_CTAS_PER_SM`` an SM; past that
+    each CTA takes every ``grid``-th tile, heaviest first."""
+    if not 64 < hd <= 128:
+        raise ValueError(f"the persistent flash body takes hd 72 to 128, "
+                         f"got {hd}")
+    tiles = B * Hq * -(-Sq // BLOCK_Q)
+    return max(1, min(tiles, PERSISTENT_CTAS_PER_SM * sm_count))
+
+
+def flash_order(B: int, Sk: int, Hkv: int, hd: int, l2_bytes: int) -> str:
+    """The order in which the persistent body's CTAs walk the work tiles.
+    ``"heads"``: the q heads fastest, then the batch rows, then the q tile
+    from the heaviest down, so that the G heads of a KV head share its K/V
+    in L2 within a round of the grid and the longest tiles run first.
+    ``"groups"``: each KV head's G x ceil(Sq / 128) tiles together (heads
+    fastest, then the q tile, heaviest first), where the launch's K/V
+    (``2 * B * Sk * Hkv * hd`` bf16 values) exceeds half the L2 and would
+    be read again from memory by each round of the first order."""
+    kv = 2 * B * Sk * Hkv * hd * 2
+    return "groups" if 2 * kv > l2_bytes else "heads"
 
 
 def flash_block_q(B: int, Sq: int, Hq: int, hd: int, sm_count: int) -> int:
-    """q rows per CTA of the bf16 kernel.  128 (two warpgroups) but at hd
-    256, whose CTA holds one SM: there 64 (one warpgroup) where the 64-row
+    """q rows per CTA of the ``narrow`` and ``hd256`` bodies (the
+    persistent one's work tiles are 128 rows).  128 (two warpgroups) but at
+    hd 256, whose CTA holds one SM: there 64 (one warpgroup) where the 64-row
     grid of ``B * Hq * ceil(Sq / 64)`` CTAs fits one CTA per SM, which
     halves the heaviest CTA's work at batch 1, and 128 where it does not,
     which halves the K/V tiles read per q row."""
@@ -130,18 +181,26 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    block_q = flash_block_q(B, Sq, Hq, hd, sm_count(q.device))
+    body = flash_body(hd, q.dtype)
+    sms = sm_count(q.device)
+    block_q = flash_block_q(B, Sq, Hq, hd, sms)
+    ctas = groups = 0
+    if body == "persistent":
+        ctas = flash_ctas(B, Sq, Hq, hd, sms)
+        groups = int(flash_order(B, Sk, Hkv, hd, l2_bytes(q.device))
+                     == "groups")
     fn = _build.launcher("flash_attention", _ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 int(q.dtype == torch.bfloat16), B, Sq, Sk, Hq, Hkv, hd,
-                 int(causal), int(window), block_q, stream)
+                 BODIES.index(body), B, Sq, Sk, Hq, Hkv, hd, int(causal),
+                 int(window), block_q, ctas, groups, stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed "
                            f"(error {err}) at q {tuple(q.shape)}, "
-                           f"k {tuple(k.shape)}, {q.dtype}, {block_q} "
-                           f"q rows a CTA")
+                           f"k {tuple(k.shape)}, {q.dtype}, body {body}, "
+                           + (f"{ctas} CTAs" if ctas else
+                              f"{block_q} q rows a CTA"))
     flash_attention.launches += 1
     return out
 

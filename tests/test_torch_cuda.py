@@ -131,6 +131,177 @@ def test_flash_attention_kernel_matches_plain_at_hd256(cuda, case, dtype):
     test_flash_attention_kernel_matches_plain(cuda, case, dtype)
 
 
+# (B, Sq, Sk, Hq, Hkv, hd, causal, window) for the persistent body (bf16 at
+# hd 72, 96 and 128): G 1, 4, 5, 6 and 8; more work tiles than CTAs (bucket
+# 8 of minitron-8b, llama4-scout, mixtral-8x22b and phi-3, a long prompt)
+# and fewer; Sq no multiple of 128, Sq < Sk, Sq = 1; windows that cut a
+# tile; non-causal
+PERSISTENT_CASES = [
+    (8, 512, 512, 32, 8, 128, True, 0),
+    (8, 512, 512, 40, 8, 128, True, 0),
+    (8, 512, 512, 48, 8, 128, True, 0),
+    (8, 512, 512, 32, 32, 96, True, 0),
+    (1, 512, 512, 64, 8, 128, True, 0),
+    (1, 200, 200, 8, 8, 96, True, 0),
+    (3, 300, 300, 40, 8, 128, True, 0),
+    (2, 190, 450, 48, 8, 128, True, 0),
+    (4, 1, 333, 32, 8, 128, True, 0),
+    (2, 1, 1500, 32, 32, 96, False, 0),
+    (2, 700, 700, 32, 8, 128, True, 100),
+    (1, 2100, 2100, 48, 8, 128, True, 1000),
+    (3, 257, 257, 24, 4, 72, True, 33),
+    (2, 400, 400, 20, 4, 96, False, 0),
+    (5, 129, 129, 16, 16, 72, False, 0),
+    (1, 4096, 4096, 48, 8, 128, True, 4096),
+]
+
+
+@pytest.mark.parametrize("case", PERSISTENT_CASES, ids=str)
+def test_flash_attention_persistent_body_matches_plain(cuda, case):
+    """bf16 at hd 72 to 128 runs the persistent body (a grid of at most
+    one CTA an SM, each walking its work tiles): against the plain version
+    in the cases above."""
+    test_flash_attention_kernel_matches_plain(cuda, case, torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", [(8, 512, 512, 40, 8, 128, True, 0),
+                                  (2, 300, 500, 32, 32, 96, True, 64),
+                                  (1, 128, 128, 4, 4, 72, False, 0)],
+                         ids=str)
+def test_flash_attention_persistent_replays_equal_bit_for_bit(cuda, case):
+    """Two eager launches, two replays of a captured launch and an eager
+    launch after them are equal bit for bit: each work tile is computed
+    whole by one CTA, in one order."""
+    B, Sq, Sk, Hq, Hkv, hd, causal, w = case
+    dt = torch.bfloat16
+    q = torch.randn(B, Sq, Hq, hd, generator=cuda, device="cuda").to(dt)
+    k = torch.randn(B, Sk, Hkv, hd, generator=cuda, device="cuda").to(dt)
+    v = torch.randn(B, Sk, Hkv, hd, generator=cuda, device="cuda").to(dt)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eager = [flash_attention(q, k, v, causal=causal, window=w)
+                 for _ in range(2)]
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = flash_attention(q, k, v, causal=causal, window=w)
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append(out.clone())
+    after = flash_attention(q, k, v, causal=causal, window=w)
+    torch.cuda.synchronize()
+    assert torch.equal(eager[0], eager[1])
+    assert all(torch.equal(r, eager[0]) for r in replays)
+    assert torch.equal(after, eager[0])
+    _close(eager[0], flash_attention_plain(q, k, v, causal=causal, window=w),
+           dt)
+
+
+@pytest.mark.parametrize("case", [(8, 512, 512, 48, 8, 128, True, 0),
+                                  (1, 512, 512, 32, 32, 96, True, 0)],
+                         ids=str)
+def test_flash_attention_persistent_on_two_streams_at_once(cuda, case):
+    """Persistent launches of two inputs in turns on two streams, so that
+    their CTAs share the card: each output equals its own eager launch bit
+    for bit."""
+    B, Sq, Sk, Hq, Hkv, hd, causal, w = case
+    dt = torch.bfloat16
+    ins = [tuple(torch.randn(*shape, generator=cuda, device="cuda").to(dt)
+                 for shape in ((B, Sq, Hq, hd), (B, Sk, Hkv, hd),
+                               (B, Sk, Hkv, hd)))
+           for _ in range(2)]
+    want = [flash_attention(q, k, v, causal=causal, window=w)
+            for q, k, v in ins]
+    streams = [torch.cuda.Stream() for _ in ins]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(10):
+        for i, (s, (q, k, v)) in enumerate(zip(streams, ins)):
+            with torch.cuda.stream(s):
+                outs[i].append(flash_attention(q, k, v, causal=causal,
+                                               window=w))
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert all(torch.equal(o, want[i]) for o in outs[i])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", [32, 64, 72, 96, 128, 256])
+def test_flash_attention_runs_the_body_flash_body_names(cuda, tmp_path, hd,
+                                                        dtype):
+    """The kernel a launch runs on the card is the body ``flash_body``
+    names: ``fa_kernel_persist`` for ``persistent``, ``fa_kernel_wgmma``
+    for ``narrow`` and ``hd256``, ``fa_kernel_f32`` for ``f32``, at this
+    head dim; read from the kernel node of a captured graph (the
+    profiler, run many times in one process, stops seeing kernels)."""
+    import re
+
+    from repro_torch.kernels.flash_attention import flash_body
+    q = torch.randn(2, 300, 8, hd, generator=cuda, device="cuda").to(dtype)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        flash_attention(q, q, q)
+    torch.cuda.current_stream().wait_stream(side)
+    # kept, so that its kernel nodes can be printed
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    graph.enable_debug_mode()
+    with torch.cuda.graph(graph):
+        flash_attention(q, q, q)
+    dot = tmp_path / "flash.dot"
+    graph.debug_dump(str(dot))
+    found = set(re.findall(r"fa_kernel_(persist|wgmma|f32)(?:ILi|<)(\d+)",
+                           dot.read_text()))
+    want = {"persistent": "persist", "narrow": "wgmma", "hd256": "wgmma",
+            "f32": "f32"}[flash_body(hd, dtype)]
+    assert found == {(want, str(hd))}, found
+
+
+@pytest.mark.parametrize("hd", [72, 96, 128])
+def test_the_persistent_flash_body_holds_unserialised_hgmma(cuda, hd):
+    """The persistent instances (both walk orders) hold HGMMA in their
+    SASS, spill nothing, have no wgmma that ptxas serialises (its
+    "Potential Performance Loss" reports: C7520 followed a role branch the
+    compiler could not see was warp-uniform, C7512 a register budget too
+    small for 128-key tiles) and enter with the 168 registers a thread
+    that setmaxnreg's exchange is reckoned on."""
+    import shutil
+    import subprocess
+
+    from repro_torch.kernels import _build
+    _build.build(["flash_attention"])
+    inst = f"fa_kernel_persistILi{hd}E"
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass",
+                           str(_build.library_path("flash_attention"))],
+                          capture_output=True, text=True, check=True).stdout
+    fn, hgmma = None, 0
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1]
+        elif fn and inst in fn and "HGMMA" in line:
+            hgmma += 1
+    assert hgmma > 0
+    log = _build.ptxas_log("flash_attention").read_text()
+    spills = SMOKE.ptxas_spills(log)
+    assert not [f for f in spills if inst in f], spills
+    assert not [ln for ln in log.splitlines()
+                if "serialized" in ln and inst in ln]
+    # setmaxnreg's exchange (128 x 40 + 256 x 232) adds up to 384 x 168
+    used, fn = [], None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            fn = line.split("Function properties for")[1]
+        elif fn and inst in fn and "Used " in line:
+            used.append(int(line.split("Used ")[1].split()[0]))
+            fn = None
+    assert used == [168, 168], used
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("case", [
     # (B, L, Hq, Hkv, hd, valid_len): gemma3-1b's decode (G = 4 at hd 256,
@@ -518,6 +689,7 @@ def test_mamba_decoder_on_the_card_matches_the_cpu(cuda):
 @pytest.mark.parametrize("src,kernel", [
     ("flash_attention", "fa_kernel_wgmma"),
     ("flash_attention", "fa_kernel_wgmmaILi256E"),    # the hd 256 instance
+    ("flash_attention", "fa_kernel_persist"),         # hd 72, 96, 128
     ("ssd_scan", "ssd_kernel_wgmma")])
 def test_bf16_kernels_run_their_products_on_the_tensor_cores(cuda, src,
                                                               kernel):
@@ -695,8 +867,11 @@ def _grads_against_plain(kind, fn, plain, inputs, dtype):
 @pytest.mark.parametrize("case", [(2, 128, 128, 4, 4, 64, True, 0),
                                   (2, 160, 160, 4, 4, 128, True, 48),
                                   (2, 40, 200, 4, 4, 256, False, 0),
-                                  (2, 130, 130, 8, 2, 64, True, 0)],
-                         ids=["causal", "window", "cross", "gqa"])
+                                  (2, 130, 130, 8, 2, 64, True, 0),
+                                  (2, 300, 300, 24, 4, 128, True, 0),
+                                  (3, 200, 200, 8, 8, 96, True, 64)],
+                         ids=["causal", "window", "cross", "gqa",
+                              "gqa128", "window96"])
 def test_flash_attention_gradients_match_the_plain_version(cuda, case,
                                                            dtype):
     B, Sq, Sk, Hq, Hkv, hd, causal, w = case

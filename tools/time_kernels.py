@@ -1,6 +1,7 @@
 """Time the port's three CUDA kernels of a checkout on the card.
 
-    python3 tools/time_kernels.py ROOT [TAG] [--hd256 | --hd128 | --hd128-plans]
+    python3 tools/time_kernels.py ROOT [TAG] [--hd256 | --hd128 | --hd128-plans
+                                              | --flash [--sdpa] [--clean]]
 
 imports ``repro_torch`` from ``ROOT/src`` (building its kernels into
 ``ROOT/build``) and times, bf16, at the serving shapes that
@@ -24,12 +25,17 @@ against its plain version (``hd256_times``).  With ``--hd128`` it times
 the grouped-query attention at hd 128 (8 KV heads; G = 4, 5, 6 query
 heads each: minitron-8b, llama4-scout, mixtral-8x22b): decode at buckets
 8 and 1 over 544 keys and at batch 1 over 4096 and 32768 keys, flash at
-buckets 8 and 1 (S 512, causal), and flash at phi-3's hd 96 (32 heads,
-G = 1), each beside SDPA and its bound, the decodes at bucket 8 beside
-their plain version, each decode's error against its plain version, and
-the decode instances' registers and spills from the compiler's report
+buckets 8, 4, 2 and 1 (S 512, causal) and at batch 1 over 4096 tokens
+(G 4, and G 6 under mixtral's window), flash at phi-3's hd 96 (32 heads,
+G = 1) at the same cases, and flash's one-CTA fit at hd 128, each beside
+SDPA and its bound, at bucket 8 beside its plain version, each decode's
+and each bucket-8 flash's error against its plain version, and the hd
+128 and hd 96 instances' registers and spills from the compiler's reports
 (``hd128_times``); with ``--hd128-plans`` that decode at other splits of
-the cache than the wrapper's plan (``hd128_plans``).  Each time is the
+the cache than the wrapper's plan (``hd128_plans``); with ``--flash``
+flash at hd 128 and 96 at the cases the persistent body was designed on,
+beside SDPA with ``--sdpa``, with a clean L2 with ``--clean``
+(``flash_times``).  Each time is the
 median of 25 CUDA-event timings, L2 flushed, a device-side sleep ahead of
 each.  It prints one JSON line.  Run it on several checkouts in turns
 (A, B, B, A) in one call to compare them on one card.
@@ -162,18 +168,23 @@ def bound_ms(nbytes, flops):
     return max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
 
 
-def hd128_times(flash_attention, decode_attention, decode_attention_plain,
-                rnd, flush, ptxas):
+def hd128_times(flash_attention, flash_attention_plain, decode_attention,
+                decode_attention_plain, rnd, flush, ptxas):
     """The grouped-query attention at hd 128 over 8 KV heads, G = 4, 5, 6
     (minitron-8b, llama4-scout, mixtral-8x22b), beside SDPA: decode at
     buckets 8 and 1 over 544 keys and at batch 1 over 4096 (mixtral's
     window) and 32768 keys (``decode128_G*``), its plain version at bucket
     8 (behind a 25 ms device sleep, as phase 4), its error against the
     plain version, absolute and as a share of the row's norm; flash at
-    buckets 8 and 1 (S 512, causal; ``flash128_G*``), and at phi-3's hd 96
-    with 32 heads, G = 1 (``flash96``); each case's bound (bytes at 3.35
-    TB/s or operations at 989 TFLOP/s); and the registers and spills that
-    ``ptxas`` reports for the decode kernel's hd 128 instances."""
+    buckets 8, 4, 2 and 1 (S 512, causal; ``flash128_G*_B*``) and at batch
+    1 over 4096 tokens (G 4, and G 6 under mixtral's window of 4096;
+    ``*_B1_S4096``), and the same at phi-3's hd 96 with 32 heads, G = 1
+    (``flash96``), at bucket 8 also its plain version and its largest error
+    against it (``*_plain_ms``, ``*_err``); flash's one-CTA fit at hd 128
+    (``flash128_fit_*``, SDPA's ``flash128_fit_sdpa_*``); each case's bound
+    (bytes at 3.35 TB/s or operations at 989 TFLOP/s); and the registers
+    and spills that ``ptxas`` reports for the decode kernel's and the flash
+    kernel's hd 128 and hd 96 instances (``*_ptxas``)."""
     F = torch.nn.functional
     out = {}
     for G in (4, 5, 6):
@@ -203,32 +214,110 @@ def hd128_times(flash_attention, decode_attention, decode_attention_plain,
             out[f"{key}_bound_ms"] = bound_ms(
                 4 * q.numel() + 2 * 2 * B * L * 8 * 128 + 4 * B,
                 4 * 128 * Hq * B * L)
+    # flash at the serving buckets over 512 tokens and at batch 1 over 4096
+    # (mixtral-8x22b's windowed layers slide 4096 keys, so its case runs
+    # the window's code path; a window of 4096 over 4096 tokens masks
+    # nothing that causality does not, so SDPA's causal call computes the
+    # same function)
     for name, Hq, Hkv, hd in (("flash128_G4", 32, 8, 128),
                               ("flash128_G5", 40, 8, 128),
                               ("flash128_G6", 48, 8, 128),
                               ("flash96", 32, 32, 96)):
-        for B in (8, 1):
-            key = f"{name}_B{B}"
-            q = rnd(B, 512, Hq, hd).bfloat16()
-            k, v = (rnd(B, 512, Hkv, hd).bfloat16() for _ in range(2))
+        for B, S in ((8, 512), (4, 512), (2, 512), (1, 512), (1, 4096)):
+            if S == 4096 and name == "flash128_G5":
+                continue
+            window = 4096 if S == 4096 and name == "flash128_G6" else 0
+            key = f"{name}_B{B}" + ("" if S == 512 else f"_S{S}")
+            q = rnd(B, S, Hq, hd).bfloat16()
+            k, v = (rnd(B, S, Hkv, hd).bfloat16() for _ in range(2))
             out[f"{key}_ms"] = time_ms(
-                lambda: flash_attention(q, k, v, causal=True), flush)
+                lambda: flash_attention(q, k, v, causal=True, window=window),
+                flush)
             out[f"{key}_sdpa_ms"] = time_ms(
                 lambda: F.scaled_dot_product_attention(
                     q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                     is_causal=True, enable_gqa=Hkv != Hq), flush)
             out[f"{key}_bound_ms"] = bound_ms(
                 2 * (2 * q.numel() + 2 * k.numel()),
-                4 * hd * B * Hq * 512 * 513 // 2)
+                4 * hd * B * Hq * S * (S + 1) // 2)
+            if B == 8:
+                out[f"{key}_plain_ms"] = time_ms(
+                    lambda: flash_attention_plain(q, k, v, causal=True),
+                    flush, sleep=50_000_000)
+                out[f"{key}_err"] = (
+                    flash_attention(q, k, v, causal=True).float()
+                    - flash_attention_plain(q, k, v, causal=True).float()
+                ).abs().max().item()
+    # what one CTA pays at hd 128: 32 q tiles of 128 rows (G 4 over 8 KV
+    # heads, fewer CTAs than SMs), not causal, over 1 and 32 K/V tiles of
+    # 64 keys; the fit gives the fixed cost of a CTA and the cost of each
+    # further tile, beside SDPA's
+    fit = {}
+    for Sk in (64, 2048):
+        q = rnd(1, 128, 32, 128).bfloat16()
+        k, v = (rnd(1, Sk, 8, 128).bfloat16() for _ in range(2))
+        fit[Sk] = (time_ms(lambda: flash_attention(q, k, v, causal=False),
+                           flush),
+                   time_ms(lambda: F.scaled_dot_product_attention(
+                       q.transpose(1, 2), k.transpose(1, 2),
+                       v.transpose(1, 2), enable_gqa=True), flush))
+    for i, who in enumerate(("", "_sdpa")):
+        per_tile = (fit[2048][i] - fit[64][i]) / 31
+        out[f"flash128_fit{who}_fixed_ms"] = fit[64][i] - per_tile
+        out[f"flash128_fit{who}_per_tile_ms"] = per_tile
     # "Function properties for <mangled name>", then its register line and
     # its spill line
-    regs, fn = {}, None
-    for ln in ptxas.splitlines():
-        if "Function properties for" in ln:
-            fn = ln.split("Function properties for")[1].strip()
-        elif fn and "Li128E" in fn and ("Used " in ln or "spill" in ln):
-            regs.setdefault(fn, []).append(ln.strip())
-    out["decode128_ptxas"] = regs
+    for src, text in ptxas.items():
+        regs, fn = {}, None
+        for ln in text.splitlines():
+            if "Function properties for" in ln:
+                fn = ln.split("Function properties for")[1].strip()
+            elif fn and ("Li128E" in fn or "Li96E" in fn) \
+                    and ("Used " in ln or "spill" in ln):
+                regs.setdefault(fn, []).append(ln.strip())
+        out[f"{src}_ptxas"] = regs
+    return out
+
+
+def flash_times(flash_attention, rnd, flush, sdpa=False, clean=False):
+    """Flash at hd 128 and 96 at the cases that the persistent body's
+    design was weighed on: G 4 and G 6 (8 KV heads) and hd 96 (32 heads,
+    G 1) at bucket 8 and batch 1 over 512 tokens and at batch 1 over 4096
+    (causal), G 4 non-causal and G 5 at bucket 8, G 4 at batch 2 over 2048
+    tokens (``flash_<case>``), and the one-CTA fit at hd 128
+    (``flash_fit_fixed`` / ``flash_fit_tile``: 32 CTAs, not causal, over
+    64 and 2048 keys); with ``sdpa`` each case also beside SDPA
+    (``*_sdpa``); with ``clean`` the L2 emptied by a read of the flush
+    buffer in place of a write.  Quick enough to run several variants of a
+    checkout (copies under ``build/``, edited by ``sed``) in turns."""
+    F = torch.nn.functional
+    out = {"clean": clean}
+
+    def tm(fn):
+        return time_ms(fn, flush, clean=clean)
+
+    cases = [(f"{name}_B{B}_S{S}", B, S, Hq, Hkv, hd, True)
+             for name, Hq, Hkv, hd in (("G4", 32, 8, 128), ("G6", 48, 8, 128),
+                                       ("hd96", 32, 32, 96))
+             for B, S in ((8, 512), (1, 512), (1, 4096))]
+    cases += [("G4nc_B8_S512", 8, 512, 32, 8, 128, False),
+              ("G5_B8_S512", 8, 512, 40, 8, 128, True),
+              ("G4_B2_S2048", 2, 2048, 32, 8, 128, True)]
+    for key, B, S, Hq, Hkv, hd, causal in cases:
+        q = rnd(B, S, Hq, hd).bfloat16()
+        k, v = (rnd(B, S, Hkv, hd).bfloat16() for _ in range(2))
+        out[key] = tm(lambda: flash_attention(q, k, v, causal=causal))
+        if sdpa:
+            out[f"{key}_sdpa"] = tm(lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=causal, enable_gqa=Hq != Hkv))
+    fit = {}
+    for Sk in (64, 2048):
+        q = rnd(1, 128, 32, 128).bfloat16()
+        k, v = (rnd(1, Sk, 8, 128).bfloat16() for _ in range(2))
+        fit[Sk] = tm(lambda: flash_attention(q, k, v, causal=False))
+    per_tile = (fit[2048] - fit[64]) / 31
+    out.update(flash_fit_fixed=fit[64] - per_tile, flash_fit_tile=per_tile)
     return out
 
 
@@ -269,7 +358,8 @@ def hd128_plans(dec_mod, rnd, flush):
 
 
 def main(root: Path, tag: str, hd256: bool = False,
-         hd128: bool = False, plans: bool = False) -> int:
+         hd128: bool = False, plans: bool = False, flash: bool = False,
+         sdpa: bool = False, clean: bool = False) -> int:
     if not torch.cuda.is_available():
         print("time_kernels: CUDA is not available", file=sys.stderr)
         return 1
@@ -277,7 +367,8 @@ def main(root: Path, tag: str, hd256: bool = False,
     dec_mod = importlib.import_module("repro_torch.kernels.decode_attention")
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_plain)
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -294,18 +385,25 @@ def main(root: Path, tag: str, hd256: bool = False,
         out.update(hd128_plans(dec_mod, rnd, flush))
         print(json.dumps(out), flush=True)
         return 0
+    if flash:
+        out.update(flash_times(flash_attention, rnd, flush, sdpa, clean))
+        print(json.dumps(out), flush=True)
+        return 0
     if hd128:
         from repro_torch.kernels import _build
-        # one launch builds the decode kernel, whose compiler report is read
+        # one launch each builds the decode and flash kernels, whose
+        # compiler reports are read
         decode_attention(*(rnd(1, 8, 128).bfloat16(),
                            rnd(1, 16, 8, 128).bfloat16(),
                            rnd(1, 16, 8, 128).bfloat16()),
                          torch.full((1,), 16, dtype=torch.int32,
                                     device="cuda"))
-        out.update(hd128_times(flash_attention, decode_attention,
-                               decode_attention_plain, rnd, flush,
-                               _build.ptxas_log("decode_attention")
-                               .read_text()))
+        flash_attention(*(rnd(1, 16, 8, 128).bfloat16() for _ in range(3)))
+        out.update(hd128_times(
+            flash_attention, flash_attention_plain, decode_attention,
+            decode_attention_plain, rnd, flush,
+            {src: _build.ptxas_log(src).read_text()
+             for src in ("decode_attention", "flash_attention")}))
         print(json.dumps(out), flush=True)
         return 0
     if hd256:
@@ -363,11 +461,15 @@ def main(root: Path, tag: str, hd256: bool = False,
 
 
 if __name__ == "__main__":
-    flags = ("--hd256", "--hd128", "--hd128-plans")
+    flags = ("--hd256", "--hd128", "--hd128-plans", "--flash", "--sdpa",
+             "--clean")
     args = [a for a in sys.argv[1:] if a not in flags]
     if len(args) not in (1, 2):
         sys.exit(__doc__)
     sys.exit(main(Path(args[0]), args[1] if len(args) == 2 else "",
                   hd256="--hd256" in sys.argv[1:],
                   hd128="--hd128" in sys.argv[1:],
-                  plans="--hd128-plans" in sys.argv[1:]))
+                  plans="--hd128-plans" in sys.argv[1:],
+                  flash="--flash" in sys.argv[1:],
+                  sdpa="--sdpa" in sys.argv[1:],
+                  clean="--clean" in sys.argv[1:]))
