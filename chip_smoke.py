@@ -193,6 +193,21 @@ FA_CASES = [
     (1, 4096, 4096, 32, 8, 128, True, 0),
     (1, 4096, 4096, 48, 8, 128, True, 4096),
     (1, 4096, 4096, 32, 32, 96, True, 0),
+    # the persistent body at hd 64 and 32 (minicpm-2b, zamba2-1.2b,
+    # whisper-tiny; the reduced GQA configs): phase 4's joins at buckets 4
+    # and 2 and over 4096 tokens, zamba2's 32 heads, fewer work tiles than
+    # CTAs, Sq no multiple of 128 with Sq < Sk, Sq = 1 under a window, a
+    # window inside a tile, non-causal, hd 32 at bucket 8
+    (4, 512, 512, 36, 36, 64, True, 0),
+    (2, 512, 512, 36, 36, 64, True, 0),
+    (1, 4096, 4096, 36, 36, 64, True, 0),
+    (8, 512, 512, 32, 32, 64, True, 0),
+    (1, 512, 512, 32, 32, 64, True, 0),
+    (3, 190, 450, 16, 4, 64, True, 0),
+    (2, 1, 700, 12, 6, 64, True, 64),
+    (2, 300, 300, 8, 8, 64, True, 16),
+    (2, 129, 129, 8, 2, 64, False, 0),
+    (8, 512, 512, 16, 16, 32, True, 0),
 ]
 # (B, L, Hq, Hkv, hd, zero_row): tests/test_kernels.py DEC_CASES (block
 # sizes dropped), the minicpm-2b decode shape at buckets 8 and 1 (the most
@@ -240,6 +255,17 @@ DEC_CASES = [
     (1, 4096, 48, 8, 128, False),
     (1, 32768, 32, 8, 128, False),
     (1, 32768, 48, 8, 128, False),
+    # the decode at hd 64 on the tensor cores (G <= 8; decode_instance) at
+    # split_plan_tc's plans: minicpm-2b at buckets 4 and 2 and at batch 1
+    # over 4096 and 32768 keys (phase 4), G 2, 4 and 8 with rows at 0 and
+    # L no multiple of 16
+    (4, 544, 36, 36, 64, True),
+    (2, 544, 36, 36, 64, False),
+    (1, 4096, 36, 36, 64, False),
+    (1, 32768, 36, 36, 64, False),
+    (3, 1001, 16, 8, 64, True),
+    (2, 333, 16, 2, 64, True),
+    (2, 9000, 32, 8, 64, False),
 ]
 # The MoE models at published width but cut depth: mixtral-8x22b holds
 # about 5.0 GB of bf16 a layer and llama4-scout about 4.2 GB, so 4 layers
@@ -1948,14 +1974,14 @@ def main() -> int:
                 if spilled:
                     raise AssertionError(f"the bf16 flash kernel at hd 256 "
                                          f"spills: {spilled}")
-            # the persistent body (hd 72, 96, 128): HGMMA, no spill, no
+            # the persistent body (hd 32 to 128): HGMMA, no spill, no
             # wgmma that ptxas serialises (its "Potential Performance Loss"
             # reports, C7510-C7520), and the 168 registers a thread at
             # entry that setmaxnreg's exchange (40 producer, 232 consumer)
             # adds up to
             log_text = _build.ptxas_log(src).read_text()
             report["flash_persistent"] = {}
-            for hd in (72, 96, 128):
+            for hd in (32, 64, 72, 96, 128):
                 inst = f"fa_kernel_persistILi{hd}E"
                 n = sum(c for f, c in hgmma.items() if inst in f)
                 spilled = [f for f in report["spills"][src] if inst in f]
@@ -1982,7 +2008,7 @@ def main() -> int:
                         f"spills {spilled}, serialised {serial}")
         report["hgmma"][src] = hgmma
     # the bf16 decode's tensor-core body (dec_kernel_tc: mma.sync, HMMA in
-    # SASS) at hd 128 (2 <= G <= 8) and 256, with no spill
+    # SASS) at hd 64 (G <= 8), 128 (2 <= G <= 8) and 256, with no spill
     sass = subprocess.run(
         [cuobjdump, "-sass", str(_build.library_path("decode_attention"))],
         capture_output=True, text=True, check=True).stdout
@@ -1993,7 +2019,7 @@ def main() -> int:
         elif fn and "dec_kernel_tc" in fn and "HMMA" in ln:
             hmma[fn] = hmma.get(fn, 0) + 1
     report["hmma"] = {"decode_attention": hmma}
-    for hd in (128, 256):
+    for hd in (64, 128, 256):
         inst = f"dec_kernel_tcILi{hd}E"
         n = sum(c for f, c in hmma.items() if inst in f)
         spilled = [f for f in report["spills"]["decode_attention"]
@@ -2113,7 +2139,8 @@ def main() -> int:
         return {"bound_ms": max(b_ms, f_ms),
                 "bound_by": "bytes" if b_ms >= f_ms else "operations"}
 
-    def time_fa(B, plain=True, S=512, H=36, hd=64, Hkv=None, window=0):
+    def time_fa(B, plain=True, S=512, H=36, hd=64, Hkv=None, window=0,
+                causal=True):
         """A join's attention at bucket B (minicpm-2b's by default):
         kernel, plain version and SDPA in turn, on the same inputs.  A
         window no shorter than S masks nothing that causality does not (its
@@ -2122,18 +2149,19 @@ def main() -> int:
         Hkv = Hkv or H
         q = rnd(B, S, H, hd, dtype=bf)
         k, v = (rnd(B, S, Hkv, hd, dtype=bf) for _ in range(2))
-        t = {"ms": time_ms(lambda: flash_attention(q, k, v, causal=True,
+        t = {"ms": time_ms(lambda: flash_attention(q, k, v, causal=causal,
                                                    window=window)),
              "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                  q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                 is_causal=True, enable_gqa=Hkv != H))}
+                 is_causal=causal, enable_gqa=Hkv != H))}
         if plain:
             t["plain_ms"] = time_ms(lambda: flash_attention_plain(
-                q, k, v, causal=True, window=window), sleep=PLAIN_SLEEP)
-        # q, k, v read once and o (q's shape) written once; causal pairs
+                q, k, v, causal=causal, window=window), sleep=PLAIN_SLEEP)
+        # q, k, v read once and o (q's shape) written once; the (q, k)
+        # pairs that attend
+        pairs = S * (S + 1) // 2 if causal else S * S
         t.update(bound((2 * q.numel() + k.numel() + v.numel())
-                       * q.element_size(),
-                       4 * hd * B * H * S * (S + 1) // 2))
+                       * q.element_size(), 4 * hd * B * H * pairs))
         return t
 
     def time_dec(B, plain=True, L=544, H=36, hd=64, Hkv=None):
@@ -2292,6 +2320,46 @@ def main() -> int:
         log(f"[timing] flash_attention hd {hd}, {H} CTAs: fixed "
             f"{fixed[0]:.4f} ms + {per_tile[0]:.5f} ms per 64-key tile; "
             f"SDPA {fixed[1]:.4f} ms + {per_tile[1]:.5f} ms; {smi}")
+
+    # minicpm-2b's attention at hd 64 (36 heads, G 1: the persistent flash
+    # body, the decode on the tensor cores) at buckets 4 and 2, the join
+    # over 4096 tokens and the decode over 4096 and 32768 keys at batch 1;
+    # zamba2-1.2b's join (32 heads) at buckets 8 and 1, whisper-tiny's
+    # encoder (6 heads over 1500 frames, not causal)
+    hd64 = {"flash_attention": {
+        **{f"bucket{b}": time_fa(b, plain=False) for b in (4, 2)},
+        "B1_S4096": time_fa(1, plain=False, S=4096),
+        "zamba2_bucket8": time_fa(8, plain=False, H=32),
+        "zamba2_bucket1": time_fa(1, plain=False, H=32),
+        "whisper_encoder": time_fa(1, plain=False, S=1500, H=6,
+                                   causal=False)},
+        "decode_attention": {
+            **{f"bucket{b}": time_dec(b, plain=False) for b in (4, 2)},
+            **{f"B1_L{L}": time_dec(1, plain=False, L=L)
+               for L in (4096, 32768)}}}
+    # What one decode CTA pays: batch 1, 36 heads, one range each (the plan
+    # fixed), over 1 and 32 tiles of 32 keys
+    dec_mod = sys.modules["repro_torch.kernels.decode_attention"]
+    planners, fit = (dec_mod.split_plan, dec_mod.split_plan_tc), {}
+    try:
+        for L in (32, 1024):
+            dec_mod.split_plan = dec_mod.split_plan_tc = \
+                lambda *_, L=L: (1, L)
+            fit[L] = time_dec(1, plain=False, L=L)["ms"]
+    finally:
+        dec_mod.split_plan, dec_mod.split_plan_tc = planners
+    per_tile = (fit[1024] - fit[32]) / 31
+    report["decode_cta_fit"] = {64: {"fixed_ms": fit[32] - per_tile,
+                                     "per_tile_ms": per_tile}}
+    log(f"[timing] decode_attention hd 64, 36 CTAs: fixed "
+        f"{fit[32] - per_tile:.4f} ms + {per_tile:.5f} ms per 32-key tile; "
+        f"{smi}")
+    for kname, rows in hd64.items():
+        log(f"[timing] {kname} hd 64: "
+            + ", ".join(f"{c}: kernel {t['ms']:.4f} ms, library "
+                        f"{t['library_ms']:.4f} ms, bound "
+                        f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})"
+                        for c, t in rows.items()) + f"; {smi}")
 
     def time_ssd(B, plain=True, S=512, H=32, P=64, N=128, Q=64):
         """The mamba2-370m join's SSD scan at bucket B; then the kernel at
@@ -2602,23 +2670,24 @@ def main() -> int:
             ("flash_attention", fa, "attention", "minicpm-2b",
              (8, 512, 512, 36, 36, 64, True, 0),
              "src/repro_torch/csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attention.py:98", 13,
+             "src/repro/kernels/flash_attention.py:98", 25,
              "bf16: wgmma for both products, TMA loads and store, "
              "heaviest q tiles first, each warpgroup 64 q rows and all "
-             "output columns (hd 72-128: a persistent grid of one CTA an "
+             "output columns (hd 32-128: a persistent grid of one CTA an "
              "SM walking 128-row work tiles over 128-key K/V tiles, a "
              "producer warpgroup, two consumer warpgroups in turns; hd "
              "256: CTAs of 64 or 128 rows by the grid); f32: CUDA cores"),
             ("decode_attention", dec, "decode_attention", "minicpm-2b",
              (8, 544, 36, 36, 64, False),
              "src/repro_torch/csrc/decode_attention.cu",
-             "src/repro/kernels/decode_attention.py:69", 13,
+             "src/repro/kernels/decode_attention.py:69", 25,
              "split over the cache, one cluster per (b, KV head), "
-             "combine through distributed shared memory, cp.async ring; "
-             "bf16 hd 256 and hd 128 with 2 <= G <= 8: mma.sync, each "
-             "warp on its own TMA-loaded 16-key blocks; plans past 8 "
-             "splits: combined by tickets in groups, one CTA per SM at "
-             "long context"),
+             "combine through distributed shared memory; bf16 hd 256, hd "
+             "128 with 2 <= G <= 8 and hd 64 with G <= 8: mma.sync, each "
+             "warp on its own TMA-loaded 16-key blocks (hd 64: three CTAs "
+             "an SM); the rest: a cp.async ring on the CUDA cores; plans "
+             "past 8 splits: combined by tickets in groups, one CTA per "
+             "SM at long context"),
             ("ssd_scan", ssd, "ssd", "mamba2-370m",
              (8, 512, 32, 64, 128, 64, False),
              "src/repro_torch/csrc/ssd_scan.cu",
@@ -2661,6 +2730,13 @@ def main() -> int:
                             "ms_bucket1", "library_ms_bucket1",
                             "plain_ms_bucket1", "bound_ms_bucket1")
                            if key in tm}})
+        if kname in hd64:
+            # minicpm-2b's other buckets and long contexts, zamba2-1.2b's
+            # and whisper-tiny's joins (phase 4), and the one-CTA fit
+            kernels[-1]["hd64"] = dict(
+                hd64[kname], cta_fit=report[
+                    "flash_cta_fit" if kname == "flash_attention"
+                    else "decode_cta_fit"][64])
         if kname in hd256:
             # gemma3-1b at hd 256: launches over its phase-9 serve()
             case256 = ((8, 512, 512, 4, 1, 256, True, 0)

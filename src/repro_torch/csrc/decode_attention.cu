@@ -19,16 +19,17 @@
 // 2*8*544*8*128*2 B = 17.8 MB, 5.4 us.  Which body runs is the wrapper's
 // decode_instance:
 //   - dec_kernel, on the CUDA cores: float32 (its tolerance needs full-f32
-//     products), and bf16 at hd <= 96 and at hd 128 with G = 1, where one
-//     shuffle reduction a score keeps up with the bytes (minicpm-2b, hd 64:
-//     0.029 ms at batch 8 against SDPA's 0.027).
-//   - dec_kernel_tc, on the tensor cores: bf16 at hd 256 (gemma3-1b) and at
+//     products), and bf16 at hd 32, 72 and 96, at hd 128 with G = 1 and
+//     at hd 64 past G = 8.
+//   - dec_kernel_tc, on the tensor cores: bf16 at hd 256 (gemma3-1b), at
 //     hd 128 with 2 <= G <= 8 (minitron-8b, llama4-scout; mixtral-8x22b's
-//     layers all slide a window and decode through plain attention).
+//     layers all slide a window and decode through plain attention) and at
+//     hd 64 with G <= 8 (minicpm-2b's G 1, zamba2-1.2b, whisper-tiny).
 //     There dec_kernel paid a 5-step shuffle reduction for every score of
 //     every query head and could not score as fast as it loaded: at hd 128,
 //     G 4 to 6, batch 8 over 544 keys it took 0.038-0.075 ms, 1.75-3.4x
-//     SDPA, where dec_kernel_tc takes 0.019-0.020 (PERF.md, section 6).
+//     SDPA, where dec_kernel_tc takes 0.019-0.020; at hd 64, G 1, batch 1
+//     over 32768 keys 0.139 ms against 0.115-0.119 (PERF.md, section 6).
 // The design is about bytes in flight:
 //
 // * Split over the cache.  The wrapper's plan (kernels/decode_attention.py,
@@ -37,11 +38,14 @@
 //   SM over B * Hkv * n_split; where B * Hkv is too small for 8 ranges each
 //   to fill the card (one KV head at batch 1), a long cache is cut into as
 //   many ranges as one CTA per SM gives, each of at least MIN_CHUNK keys.
-//   The hd 128 tensor-core body takes split_plan_tc instead: at most one
-//   CTA per SM and one cluster, ranges of about 256 keys or more, whose
-//   warps stream two stages each.  A range at or past valid_len reads
-//   nothing.
-// * Combine in the same launch, by one of two means (split_groups):
+//   The tensor-core body at hd 64 and 128 takes split_plan_tc instead: at
+//   most one CTA per SM (but one range where B * Hkv alone passes the SMs)
+//   and one cluster, ranges of about 256 keys or more, whose warps stream
+//   two stages each.  A range at or past valid_len reads nothing.
+// * Combine in the same launch, by one of two means (split_groups), or,
+//   for a plan of one range, not at all: the CTA's 8 warps' partials go
+//   straight into o, launched without a cluster (at hd 64, batch 8, that
+//   saved 5-6 % of the launch; PERF.md, section 6):
 //   - cluster (hd <= 128, n_split <= 8): the n_split CTAs of one (b, KV
 //     head) form one thread-block cluster.  Each leaves its partial (m, l,
 //     acc) in its shared memory; after a cluster barrier, rank 0 reads the
@@ -75,11 +79,12 @@
 //     its own online softmax on the CUDA cores: lanes span the head dim
 //     (two elements each), a shuffle reduction gives each key's score, and
 //     all G query rows share the K/V row.
-//   - dec_kernel_tc ("tensor_cores": bf16 at hd 256, and at hd 128 with 2
-//     <= G <= 8): each warp on its own 16-key blocks loaded by TMA; see
-//     the comment above it.  On the CUDA cores the G = 4 heads of hd 256
-//     cost about 600 instructions a warp per 4 keys (4 KB of K and V), the
-//     G = 6 heads of hd 128 about 640 per 2 KB.
+//   - dec_kernel_tc ("tensor_cores": bf16 at hd 256, at hd 128 with 2 <=
+//     G <= 8, at hd 64 with G <= 8): each warp on its own 16-key blocks
+//     loaded by TMA; see the comment above it.  On the CUDA cores the G =
+//     4 heads of hd 256 cost about 600 instructions a warp per 4 keys (4
+//     KB of K and V), the G = 6 heads of hd 128 about 640 per 2 KB, and
+//     even G = 1 at hd 64 five shuffles for every score.
 //   The 8 warps' partials are combined in shared memory first.
 #include <cmath>
 #include <cooperative_groups.h>
@@ -264,6 +269,28 @@ __device__ __forceinline__ void cta_partial(const float* w0, float* pm,
       s = fmaf(fast_exp2(w0[w * WS + g] - M), w0[w * WS + GC + g], s);
     pm[g] = M;
     pl[g] = s;
+  }
+}
+
+// One range (n_split 1): the 8 warps' partials at w0 straight into o, by
+// log-sum-exp in warp order, with no CTA partial and no cluster
+template <typename T, int HD, int GC>
+__device__ __forceinline__ void cta_output(const float* w0, T* o, int G,
+                                           int tid) {
+  constexpr int WS = 2 * GC + GC * HD;
+  for (int p = tid; p < G * HD; p += NT) {
+    const int g = p / HD;
+    float M = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) M = fmaxf(M, w0[w * WS + g]);
+    float a = 0.f, l = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const float e = fast_exp2(w0[w * WS + g] - M);
+      a = fmaf(e, w0[w * WS + 2 * GC + p], a);
+      l = fmaf(e, w0[w * WS + GC + g], l);
+    }
+    o[p] = repro::from_float<T>(a / fmaxf(l, 1e-30f));
   }
 }
 
@@ -497,6 +524,10 @@ __global__ void __launch_bounds__(NT)
   __syncthreads();
   const float* w0 = reinterpret_cast<const float*>(smem);
 
+  if (n_split == 1) {
+    cta_output<T, HD, GC>(w0, o + qo_off, G, tid);
+    return;
+  }
   if (group == 0) {
     cluster_combine<T, HD, GC>(w0, part, wts, inv, o + qo_off, G, n_split,
                                tid);
@@ -506,13 +537,17 @@ __global__ void __launch_bounds__(NT)
                             group, tid);
 }
 
-// -- bf16 on the tensor cores: hd 256, and hd 128 with 2 <= G <= 8 ---------
+// -- bf16 on the tensor cores: hd 256, hd 128 with 2 <= G <= 8, hd 64 with
+// G <= 8 ----------------------------------------------------------------------
 // Each warp streams its own 16-key blocks of the CTA's range (blocks w, w +
 // 8, ...) through its own stages: one TMA box of 16 rows x 64 columns a
-// panel, HD / 64 panels of K and as many of V (8 KB a stage at hd 128, 16
-// KB at hd 256), 128-byte swizzle, one mbarrier a stage.  A warp has two
-// stages at hd 128, so that one block loads while the other is scored, and
-// one at hd 256, where two would not fit.
+// panel, HD / 64 panels of K and as many of V (4 KB a stage at hd 64, 8 KB
+// at hd 128, 16 KB at hd 256), 128-byte swizzle, one mbarrier a stage.  A
+// warp has two stages at hd 64 and 128, so that one block loads while the
+// other is scored, and one at hd 256, where two would not fit.  At G = 1
+// (minicpm-2b) seven of the 8 head columns of each mma are zeros: they
+// cost tensor-core issue slots, not bytes, in a kernel bound by its bytes,
+// and the score of a key is one mma fragment, not a shuffle reduction.
 // S^T = K q^T is mma.sync m16n8k16 with the 16 keys as rows (ldmatrix from
 // the swizzled panels: no bank conflict) and q^T (the G <= 8 query heads,
 // zero-padded to 8 columns) as a register operand loaded once: HD / 16
@@ -530,10 +565,11 @@ constexpr int TC_PANEL = TC_KB * 128;         // 16 rows x 64 columns
 
 template <int HD>
 struct TcCfg {
-  static constexpr int GC = 1024 / HD;        // head capacity: G * HD <= 1024
+  // head capacity: G * HD <= 1024, and the mma's 8 columns
+  static constexpr int GC = 1024 / HD < 8 ? 1024 / HD : 8;
   static constexpr int PANELS = HD / 64;
   static constexpr int STAGE = 2 * PANELS * TC_PANEL;   // K and V of a block
-  static constexpr int STAGES = HD == 128 ? 2 : 1;      // a warp's
+  static constexpr int STAGES = HD <= 128 ? 2 : 1;      // a warp's
   static constexpr int WS = 2 * GC + GC * HD; // a warp's partial (floats)
   // the warps' partials and the CTA's (cluster combine) fit one stage a warp
   static_assert((NW + 1) * WS * 4 <= NW * STAGE, "the partials fit the ring");
@@ -548,8 +584,11 @@ struct TcCfg {
   static constexpr int SMEM = 1024 + RING_OFF + NW * STAGES * STAGE;
 };
 
+// Three CTAs an SM at hd 64 (80 registers a thread and 67 KB of shared
+// memory each), so that batch 8 of minicpm-2b's 36 heads, 288 CTAs of one
+// range, runs in one wave; one at hd 128 and 256.
 template <int HD>
-__global__ void __launch_bounds__(NT, 1)
+__global__ void __launch_bounds__(NT, HD == 64 ? 3 : 1)
     dec_kernel_tc(const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv,
                   const __nv_bfloat16* __restrict__ q,
@@ -710,6 +749,10 @@ __global__ void __launch_bounds__(NT, 1)
     }
   }
   __syncthreads();
+  if (gridDim.x == 1) {
+    cta_output<__nv_bfloat16, HD, GC>(w0, o + qo_off, G, tid);
+    return;
+  }
   if (group == 0) {
     cluster_combine<__nv_bfloat16, HD, GC>(w0, w0 + NW * C::WS, wts, inv,
                                            o + qo_off, G, gridDim.x, tid);
@@ -772,7 +815,7 @@ int launch(const void* q, const void* k, const void* v, const int* vlen,
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
-    cfg.numAttrs = group == 0 ? 1 : 0;
+    cfg.numAttrs = group == 0 && n_split > 1 ? 1 : 0;
     err = cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(q),
                              static_cast<const T*>(k),
                              static_cast<const T*>(v), vlen,
@@ -857,7 +900,10 @@ int launch_tc(const void* q, const void* k, const void* v, const int* vlen,
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = group == 0 ? 1 : 0;
+  // one range needs no combine: launched without a cluster, which saves
+  // about a microsecond of a cluster launch's fixed cost (PERF.md,
+  // section 6)
+  cfg.numAttrs = group == 0 && n_split > 1 ? 1 : 0;
   const float scale_log2 = (float)(LOG2E / std::sqrt((double)HD));
   err = cudaLaunchKernelEx(&cfg, dec_kernel_tc<HD>, tk, tv,
                            static_cast<const __nv_bfloat16*>(q), vlen,
@@ -878,7 +924,7 @@ int launch_tc(const void* q, const void* k, const void* v, const int* vlen,
 // with `scratch` its float32 partials and then its B * Hkv * (groups + 1)
 // tickets (zeroed here, on `stream`); tensor_cores: the body, which the
 // wrapper's decode_instance alone chooses, 1 for dec_kernel_tc (bf16 at hd
-// 128 and 256 only), 0 for dec_kernel (every dtype and head dim).
+// 64, 128 and 256 only), 0 for dec_kernel (every dtype and head dim).
 extern "C" int repro_decode_attention(const void* q, const void* k,
                                       const void* v, const void* valid_len,
                                       void* o, void* scratch, int is_bf16,
@@ -891,6 +937,9 @@ extern "C" int repro_decode_attention(const void* q, const void* k,
   if (n_split < 1 || chunk < 1 || group < 0) return -1;
   if (tensor_cores) {
     if (!is_bf16) return -1;
+    if (hd == 64)
+      return launch_tc<64>(q, k, v, vlen, o, part, B, L, Hq, Hkv, n_split,
+                           chunk, group, s);
     if (hd == 128)
       return launch_tc<128>(q, k, v, vlen, o, part, B, L, Hq, Hkv, n_split,
                             chunk, group, s);

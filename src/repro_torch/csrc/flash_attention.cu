@@ -13,12 +13,12 @@
 // 3.35 TB/s) and does about 9.7 GFLOP (about 9.8 us at the bf16 tensor-core
 // peak), so the card's bound is the memory traffic.
 //
-// Four bodies; the wrapper picks one (kernels/flash_attention.py,
+// Three bodies; the wrapper picks one (kernels/flash_attention.py,
 // flash_body) and passes it to the C launcher below, which refuses a body
 // at a head dim it was not built for:
 //
-// * bf16, three bodies with both products on the tensor cores.  S = Q K^T
-//   is a wgmma m64n64k16 with Q and K in shared memory, both K-major; P V
+// * bf16, two bodies with both products on the tensor cores.  S = Q K^T
+//   is a wgmma m64nNk16 with Q and K in shared memory, both K-major; P V
 //   is a wgmma m64nNk16 with P in registers (the S accumulator fragment
 //   converted to bf16 lines up with the A-operand fragment, as in
 //   FlashAttention-3) and V in shared memory, MN-major (transpose bit).
@@ -38,13 +38,9 @@
 //   tiles are skipped with _fa_kernel's tile test; only tiles that straddle
 //   the diagonal, the window edge or Sk are masked.  q tiles run
 //   heaviest-first, so the causal tail is short.
-//   - hd 32 and 64 (fa_narrow): one CTA of two warpgroups per 128 q rows,
-//     two CTAs an SM; K/V tiles of 64 keys land in one four-stage ring,
-//     each stage completing on its mbarrier, so the next two tiles' loads
-//     overlap the current tile's products, with one CTA barrier per tile.
-//     The two CTAs of an SM overlap one another's loads and stores.
-//   - hd 72, 96 and 128 (fa_persist): one CTA an SM (193 KB of shared
-//     memory at hd 128), so a CTA of fa_narrow's shape left its SM with
+//   - hd 32 to 128 (fa_persist): one CTA an SM (193 KB of shared memory
+//     at hd 128, 97 KB at hd 64, whose 384 threads of 168 registers fill
+//     the register file), so a CTA that ran one q tile left its SM with
 //     nothing else to run while it loaded its Q and stored its O.  The CTA
 //     is persistent: the grid is at most one CTA an SM (flash_ctas), and
 //     each CTA walks work tiles of 128 q rows of one head and batch row,
@@ -57,39 +53,45 @@
 //     memory bytes as the card's shared memory delivers, and the per-tile
 //     softmax work was paid twice as often).  One producer warp streams the
 //     K and V tiles of all the CTA's work tiles through a two-stage ring
-//     each, whose index runs on across work tiles; each stage's "full"
+//     each (at hd 64, three or four stages measured no faster), whose
+//     index runs on across work tiles; each stage's "full"
 //     barrier completes with its TMA bytes, its "empty" barrier with one
 //     arrival of each of the eight consumer warps (K once S has read it, V
 //     once P V has), so the next tile's first K/V loads run under the
 //     current tile's last products and epilogue.  Each consumer warpgroup
 //     loads its own 64 q rows into one of two Q slots, the next work
-//     tile's during the current one's first K/V tile; O is staged into the
+//     tile's during the current one's first K/V tile (at hd 64 four slots,
+//     the Q two tiles ahead, measured no faster); O is staged into the
 //     finished tile's slot and stored by TMA, and the store is waited on
-//     only before that slot takes a new Q.  The two consumer warpgroups
+//     only before that slot takes a new Q.  (Issuing a work tile's last
+//     P V beside the next tile's first S, and its store after that tile's
+//     first softmax, measured 1-2 % slower at bucket 8, at hd 64 and 128.)
+//     The two consumer warpgroups
 //     take turns to issue their products (two named barriers,
 //     FlashAttention-3's ping-pong), so one's softmax runs under the
 //     other's wgmma, and the exponent is one fused multiply-add
-//     (online_softmax<true>).  At hd 96 S takes 6 k-steps and P V is
-//     m64n96k16 into 48 registers, with V in 32-column panels under the
-//     64-byte swizzle (a 96-column MN-major operand is whole atoms of 32
-//     columns, not of 64); hd 72 keeps 128 columns of P V (5 k-steps of
-//     S), since it runs only in reduced configs.
+//     (online_softmax<true>).  At hd 32 and 64, Q, K and O are one panel
+//     and P V is m64n64k16 into 32 registers; at hd 96 S takes 6 k-steps
+//     and P V is m64n96k16 into 48 registers, with V in 32-column panels
+//     under the 64-byte swizzle (a 96-column MN-major operand is whole
+//     atoms of 32 columns, not of 64); hd 72 keeps 128 columns of P V (5
+//     k-steps of S), since it runs only in reduced configs.
 //   - hd 256 (fa_hd256, gemma3): FlashAttention-3's hd 256 layout without
 //     its producer warp.  Each warpgroup holds the 64 x 256 f32 output
 //     accumulator (128 registers a thread) beside S (32) and P (16): 202
 //     registers, under the 255 that one CTA of 256 threads an SM leaves,
-//     so no setmaxnreg is needed.  K and V have rings of their own, two
-//     stages each: Q (32 KB a warpgroup) + 2 x (32 + 32) KB fits the 227
-//     KB a CTA may have.  At the top of tile j, after one CTA barrier,
-//     thread 0 refills the K stage that tile j - 1 left (with tile j + 1)
-//     and the V stage that tile j - 2 left (with tile j), so every load has
-//     one whole tile's products to land in.  (A producer warpgroup with
-//     setmaxnreg and "empty" barriers in place of the CTA barrier measured
-//     no faster at 128 rows and slower at 64, and was not kept: at bucket 8
-//     the grid is under one wave, so no next tile has loads to overlap.)
-//     The CTA is 128 q rows (two warpgroups) or 64 (one): the wrapper takes
-//     64 where the 64-row grid fits one CTA per SM (batch 1), 128 elsewhere
-//     (kernels/flash_attention.py, flash_block_q).
+//     so no setmaxnreg is needed.  K/V tiles are 64 keys, and K and V have
+//     rings of their own, two stages each: Q (32 KB a warpgroup) + 2 x (32
+//     + 32) KB fits the 227 KB a CTA may have.  At the top of tile j, after
+//     one CTA barrier, thread 0 refills the K stage that tile j - 1 left
+//     (with tile j + 1) and the V stage that tile j - 2 left (with tile j),
+//     so every load has one whole tile's products to land in.  (A producer
+//     warpgroup with setmaxnreg and "empty" barriers in place of the CTA
+//     barrier measured no faster at 128 rows and slower at 64, and was not
+//     kept: at bucket 8 the grid is under one wave, so no next tile has
+//     loads to overlap.)  The CTA is 128 q rows (two warpgroups) or 64
+//     (one): the wrapper takes 64 where the 64-row grid fits one CTA per SM
+//     (batch 1), 128 elsewhere (kernels/flash_attention.py, flash_block_q).
 // * float32, fa_kernel_f32: the CUDA-core kernel of the port's first
 //   version.  Full-f32 products are what the f32 tolerance needs (TF32 would
 //   not meet it); f32 is on no serving path.
@@ -298,40 +300,26 @@ namespace wg {
 
 using namespace repro::hopper;
 using bf16 = __nv_bfloat16;
-constexpr int BQ = 128;     // q rows per CTA: two consumer warpgroups
-constexpr int BK = 64;      // keys per K/V tile
-constexpr int NT = 256;
+constexpr int BQ = 128;     // q rows a persistent work tile
+constexpr int BK = 64;      // keys per K/V tile at hd 256
 
-// hd 32 and 64 (fa_narrow): Q of 128 rows and the K/V ring, one panel wide
-template <int HD>
-struct Cfg {
-  static_assert(HD <= 64, "fa_narrow takes hd 32 and 64");
-  static constexpr int HDP = 64;            // padded to a whole panel
-  static constexpr int STAGES = 4;          // K/V ring depth
-  static constexpr int AHEAD = STAGES - 2;  // tiles loading while one is used
-  static constexpr int Q_BYTES = BQ * HDP * 2;
-  static constexpr int KV_BYTES = BK * HDP * 2;
-  static constexpr int NP = HDP / 64;              // 64-column panels
-  // +1024: the base is rounded up to the swizzle atom; then the barriers
-  static constexpr int SMEM = Q_BYTES + STAGES * 2 * KV_BYTES + 1024 +
-                              8 * (STAGES + 1);
-};
-
-// hd 72..128 (fa_persist): K/V tiles of 128 keys; Q and K in two 64-column
-// panels; V in two such panels, or at hd 96 in three 32-column panels under
+// hd 32..128 (fa_persist): K/V tiles of 128 keys; Q, K and O in 64-column
+// panels, one at hd <= 64 and two above (hd 32 and 72 padded with zeros);
+// V in as many such panels, or at hd 96 in three 32-column panels under
 // the 64-byte swizzle; K and V in two-stage rings of their own
 template <int HD>
 struct CfgP {
-  static_assert(HD > 64 && HD <= 128, "fa_persist takes hd 72 to 128");
+  static_assert(HD % 8 == 0 && HD <= 128, "fa_persist takes hd 32 to 128");
   static constexpr int KEYS = 128;                 // keys per K/V tile
+  static constexpr int PANELS = (HD + 63) / 64;    // of Q, K and O
   static constexpr int KSTEPS = (HD + 15) / 16;    // k-steps of S = Q K^T
   static constexpr bool V32 = HD == 96;            // V panels of 32 columns
-  static constexpr int PV_N = V32 ? 96 : 128;      // columns of P V
+  static constexpr int PV_N = V32 ? 96 : 64 * PANELS;  // columns of P V
   static constexpr int V_COLS = V32 ? 32 : 64;     // columns a V panel
   static constexpr int V_PANELS = PV_N / V_COLS;
   static constexpr int V_PANEL = KEYS * V_COLS * 2;  // bytes of a V panel
-  static constexpr int QH_BYTES = 64 * 128 * 2;    // one warpgroup's q rows
-  static constexpr int K_BYTES = KEYS * 128 * 2;
+  static constexpr int QH_BYTES = 64 * 128 * PANELS;  // a warpgroup's q rows
+  static constexpr int K_BYTES = KEYS * 128 * PANELS;
   static constexpr int V_BYTES = V_PANELS * V_PANEL;
   // Q: 2 slots x 2 warpgroups; the rings; +1024: the base is rounded up to
   // the swizzle atom; 12 barriers
@@ -497,144 +485,7 @@ __device__ __forceinline__ void stage_out(const float (&acc)[N], int col0,
   }
 }
 
-// Accumulator fragment of a 64xN wgmma (f32): thread t of the warpgroup,
-// warp w = t/32, lane; register i holds row 16w + lane/4 + 8*((i>>1)&1),
-// column 8*(i/4) + 2*(lane%4) + (i&1).
-// hd <= 128: a CTA of two warpgroups, 128 q rows.
-template <int HD>
-__device__ __forceinline__ void fa_narrow(
-    const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
-    const CUtensorMap* to, int Sq, int Sk, int Hq, int Hkv, int causal,
-    int window, float scale_log2) {
-  using C = Cfg<HD>;
-  constexpr int STAGES = C::STAGES, AHEAD = C::AHEAD;
-  extern __shared__ uint8_t smem_raw[];
-  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sQ = base;
-  const uint32_t sK = sQ + C::Q_BYTES;                 // stage s at + s*KV
-  const uint32_t sV = sK + STAGES * C::KV_BYTES;
-  const uint32_t bars = sV + STAGES * C::KV_BYTES;     // STAGES full, then Q
-
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int iq = gridDim.z - 1 - blockIdx.z;           // heaviest first
-  const int hk = h / (Hq / Hkv);
-  const int tid = threadIdx.x;
-  const int wgi = tid >> 7;       // warpgroup: rows 64*wgi
-  const int warp = (tid >> 5) & 3, lane = tid & 31;
-  const int wrow = wgi * 64;      // its first q row
-
-  const int q0 = iq * BQ;
-  const int first_q = q0 + (Sk - Sq);
-  const int last_q = first_q + BQ - 1;
-  const TileRange live(first_q, BQ, Sk, causal, window);
-  const int ik_lo = live.lo, ik_hi = live.hi;
-
-  // Thread 0 issues every load: Q once, then each K/V tile into its stage,
-  // completing on that stage's barrier.  The helpers run on whole warps and
-  // `on` predicates the copy (hopper.cuh): no branch splits warp 0 ahead
-  // of a wgmma.
-  const bool lead = tid == 0;
-  const uint32_t qbar = bars + 8 * STAGES;
-  auto load_kv = [&](int ik, int stage, bool on) {
-    const uint32_t bar = bars + 8 * stage;
-    mbar_expect_tx(bar, 2 * C::KV_BYTES, on);
-#pragma unroll
-    for (int p = 0; p < C::NP; ++p) {
-      tma_load4(sK + stage * C::KV_BYTES + p * (BK * 128), tk, 64 * p, hk,
-                ik * BK, b, bar, on);
-      tma_load4(sV + stage * C::KV_BYTES + p * (BK * 128), tv, 64 * p, hk,
-                ik * BK, b, bar, on);
-    }
-  };
-  for (int i = 0; i <= STAGES; ++i) mbar_init(bars + 8 * i, 1, lead);
-  fence_mbar_init();
-  __syncthreads();
-  mbar_expect_tx(qbar, C::Q_BYTES, lead);
-#pragma unroll
-  for (int p = 0; p < C::NP; ++p)
-    tma_load4(sQ + p * (BQ * 128), tq, 64 * p, h, q0, b, qbar, lead);
-  for (int t = 0; t < AHEAD && ik_lo + t < ik_hi; ++t)
-    load_kv(ik_lo + t, t, lead);
-  mbar_wait(qbar, 0);
-
-  float acc[C::HDP / 2];
-#pragma unroll
-  for (int i = 0; i < C::HDP / 2; ++i) acc[i] = 0.f;
-  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;  // rows r, r+8
-  const int qp0 = first_q + wrow + warp * 16 + (lane >> 2);
-
-  // Each iteration issues S = Q K^T of tile ik and P V of tile ik - 1
-  // together; the softmax of tile ik runs while P V is on the tensor cores
-  // (FlashAttention-3's intra-warpgroup overlap).  The ring holds tile
-  // ik - 1 (its V still read), tile ik and the two tiles in flight.
-  uint32_t pk[BK / 4];               // P of tile ik - 1, as bf16 pairs
-  float s[32];
-  for (int ik = ik_lo, stage = 0; ik < ik_hi;
-       ++ik, stage = stage + 1 == STAGES ? 0 : stage + 1) {
-    mbar_wait(bars + 8 * stage, ((ik - ik_lo) / STAGES) & 1);
-    // every thread is done with tile ik - 2, whose stage the load refills
-    __syncthreads();
-    const int ahead = ik + AHEAD;
-    // warp 0 alone, all its lanes together: the branch is uniform across
-    // each warp, so it splits none, and spares the other seven warps the
-    // issue (run by all 256 threads it cost 0.07 us a tile, PERF.md)
-    if (tid < 32)
-      load_kv(ahead, (ahead - ik_lo) % STAGES, lead && ahead < ik_hi);
-
-    const bool pv = ik > ik_lo;
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < C::HDP / 16; ++kk) {
-      const uint32_t qa = sQ + (kk >> 2) * (BQ * 128) + wrow * 128 +
-                          (kk & 3) * 32;
-      const uint32_t ka = sK + stage * C::KV_BYTES + (kk >> 2) * (BK * 128) +
-                          (kk & 3) * 32;
-      wgmma_ss<0, 0>(s, make_desc(qa, 16, 1024), make_desc(ka, 16, 1024),
-                     kk);
-    }
-    wgmma_commit();
-    if (pv) {
-      issue_pv(acc, pk, sV + (stage == 0 ? STAGES - 1 : stage - 1) *
-                                 C::KV_BYTES);
-      wgmma_wait<1>();               // S has landed; P V may still run
-    } else {
-      wgmma_wait<0>();
-    }
-    float a0, a1;
-    online_softmax(s, ik * BK, first_q, last_q, qp0, Sk, causal, window,
-                   scale_log2, lane, m0, m1, l0, l1, a0, a1);
-    wgmma_wait<0>();                 // P V of tile ik - 1 is in acc
-#pragma unroll
-    for (int i = 0; i < C::HDP / 2; ++i) acc[i] *= (i & 2) ? a1 : a0;
-    // P's A-operand fragment for keys 16kk..16kk+15 is s[8kk .. 8kk+7]
-#pragma unroll
-    for (int i = 0; i < BK / 4; ++i) pk[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
-  }
-  if (ik_hi > ik_lo) {
-    const int last = (ik_hi - 1 - ik_lo) % STAGES;
-    wgmma_fence();
-    issue_pv(acc, pk, sV + last * C::KV_BYTES);
-    wgmma_wait<0>();
-  }
-
-  // O / l into this warpgroup's rows of the Q region (its last S has been
-  // read); then one TMA store a panel, which drops the rows past Sq and the
-  // columns past hd
-  const float d0 = 1.f / fmaxf(quad_sum(l0), 1e-30f);
-  const float d1 = 1.f / fmaxf(quad_sum(l1), 1e-30f);
-  const uint32_t so = sQ + wrow * 128;
-  stage_out(acc, 0, so, BQ * 128, d0, d1, warp, lane);
-  fence_async_smem();
-  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wgi) : "memory");
-  const bool wg_lead = (tid & 127) == 0;
-#pragma unroll
-  for (int p = 0; p < C::NP; ++p)
-    tma_store4(to, so + p * (BQ * 128), 64 * p, h, q0 + wrow, b, wg_lead);
-  bulk_commit(wg_lead);
-  bulk_wait_read(wg_lead);
-}
-
-// hd 72..128: a persistent CTA of two consumer warpgroups (64 q rows each)
+// hd 32..128: a persistent CTA of two consumer warpgroups (64 q rows each)
 // and a producer warpgroup (header).  Work tiles are 128 q rows of one head
 // and batch row, numbered (tile_of) heads fastest, so the G heads of one KV
 // head run side by side and share its K/V in L2, then batch rows, then the
@@ -724,7 +575,7 @@ __device__ __forceinline__ void fa_persist(
         mbar_wait(kempty + 8 * st, phase);
         mbar_expect_tx(kfull + 8 * st, C::K_BYTES, lead);
 #pragma unroll
-        for (int p = 0; p < 2; ++p)
+        for (int p = 0; p < C::PANELS; ++p)
           tma_load4(sK + st * C::K_BYTES + p * (KEYS * 128), tk, 64 * p, hk,
                     ik * KEYS, b, kfull + 8 * st, lead);
         mbar_wait(vempty + 8 * st, phase);
@@ -750,7 +601,7 @@ __device__ __forceinline__ void fa_persist(
     const uint32_t dst = sQ + (2 * slot + wgi) * C::QH_BYTES;
     mbar_expect_tx(bar, C::QH_BYTES, on);
 #pragma unroll
-    for (int p = 0; p < 2; ++p)
+    for (int p = 0; p < C::PANELS; ++p)
       tma_load4(dst + p * (64 * 128), tq, 64 * p, h, iq * BQ + 64 * wgi, b,
                 bar, on);
   };
@@ -845,7 +696,7 @@ __device__ __forceinline__ void fa_persist(
     fence_async_smem();
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wgi) : "memory");
 #pragma unroll
-    for (int p = 0; p < 2; ++p)
+    for (int p = 0; p < C::PANELS; ++p)
       tma_store4(to, sq + p * (64 * 128), 64 * p, h, q0 + 64 * wgi, b,
                  wg_lead);
     bulk_commit(wg_lead);
@@ -887,7 +738,7 @@ __device__ __forceinline__ void fa_hd256(
   const int ik_lo = live.lo, ik_hi = live.hi;
 
   // one K or V tile (four 64-column panels of 64 keys) into `dst`,
-  // completing on `bar`; predicated as in fa_narrow
+  // completing on `bar`; thread 0's copies predicated (hopper.cuh)
   const bool lead = tid == 0;
   auto load = [&](const CUtensorMap* map, uint32_t dst, uint32_t bar, int ik,
                   bool on) {
@@ -937,7 +788,9 @@ __device__ __forceinline__ void fa_hd256(
     mbar_wait(kbar + 8 * st, (t >> 1) & 1);              // K of tile t
     if (t > 0) mbar_wait(vbar + 8 * (st ^ 1), ((t - 1) >> 1) & 1);  // V t-1
     __syncthreads();
-    if (tid < 32) {                  // warp 0 alone, as in fa_narrow
+    // warp 0 alone, all its lanes together: the branch is uniform across
+    // each warp, so it splits none, and spares the other warps the issue
+    if (tid < 32) {
       load(tk, sK + (st ^ 1) * T_BYTES, kbar + 8 * (st ^ 1), ik + 1,
            lead && ik + 1 < ik_hi);
       load(tv, sV + st * T_BYTES, vbar + 8 * st, ik, lead && t > 0);
@@ -997,33 +850,29 @@ __device__ __forceinline__ void fa_hd256(
   bulk_wait_read(wg_lead);
 }
 
-// fa_narrow (hd 32, 64) and fa_hd256: NWG warpgroups of 64 q rows (2 but
-// at hd 256, where the wrapper picks), one CTA per q tile.  Two CTAs an SM
-// at hd <= 64, where the 128-register budget holds both accumulators; one at
-// hd 256, whose O accumulator alone takes 128 registers, under the 255 a
-// thread that one CTA an SM leaves.
+// fa_hd256: NWG warpgroups of 64 q rows (the wrapper picks 1 or 2), one
+// CTA per q tile and one an SM, whose O accumulator alone takes 128
+// registers, under the 255 a thread that one CTA an SM leaves.
 template <int HD, int NWG>
-__global__ void __launch_bounds__(128 * NWG, HD <= 64 ? 2 : 1)
+__global__ void __launch_bounds__(128 * NWG, 1)
     fa_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv,
                     const __grid_constant__ CUtensorMap to, int Sq, int Sk,
                     int Hq, int Hkv, int causal, int window,
                     float scale_log2) {
-  if constexpr (HD == 256)
-    fa_hd256<NWG>(&tq, &tk, &tv, &to, Sq, Sk, Hq, Hkv, causal, window,
-                  scale_log2);
-  else
-    fa_narrow<HD>(&tq, &tk, &tv, &to, Sq, Sk, Hq, Hkv, causal, window,
-                  scale_log2);
+  static_assert(HD == 256, "fa_kernel_wgmma runs hd 256");
+  fa_hd256<NWG>(&tq, &tk, &tv, &to, Sq, Sk, Hq, Hkv, causal, window,
+                scale_log2);
 }
 
-// fa_persist (hd 72..128): 384 threads and one CTA an SM (its shared
-// memory); the launch bounds leave 168 registers a thread, and setmaxnreg
-// moves the producer warpgroup's to the consumers (232 a thread), whose
-// S (64 registers), P (32) and output accumulator (64, or 48 at hd 96)
-// would not fit 168.  The walk's order is a template argument (a runtime
-// choice took 10-15 more registers).
+// fa_persist (hd 32..128): 384 threads and one CTA an SM (its shared
+// memory, and at hd <= 64 its registers); the launch bounds leave 168
+// registers a thread, and setmaxnreg moves the producer warpgroup's to the
+// consumers (232 a thread), whose S (64 registers), P (32) and output
+// accumulator (64; 48 at hd 96, 32 at hd <= 64) would not fit 168.  The
+// walk's order is a template argument (a runtime choice took 10-15 more
+// registers).
 template <int HD, bool GROUPS>
 __global__ void __launch_bounds__(CfgP<HD>::NT, 1)
     fa_kernel_persist(const __grid_constant__ CUtensorMap tq,
@@ -1051,11 +900,7 @@ int launch_rows(const void* q, const void* k, const void* v, void* o, int B,
       !make_map_bshd(&tv, v, HD, Hkv, Sk, B, BK) ||
       !make_map_bshd(&to, o, HD, Hq, Sq, B, 64))
     return -2;
-  int bytes;
-  if constexpr (HD == 256)
-    bytes = Cfg256<NWG>::SMEM;
-  else
-    bytes = Cfg<HD>::SMEM;
+  const int bytes = Cfg256<NWG>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
       fa_kernel_wgmma<HD, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
@@ -1094,17 +939,17 @@ int launch_persist(const void* q, const void* k, const void* v, void* o,
 }  // namespace wg
 
 // The bodies, numbered as kernels/flash_attention.py's BODIES
-enum Body { kNarrow = 0, kPersist = 1, kHd256 = 2, kF32 = 3 };
+enum Body { kPersist = 0, kHd256 = 1, kF32 = 2 };
 
 }  // namespace
 
 // C interface for ctypes.  Returns 0 on success, the cudaError_t of a
 // refused launch, -1 for a body, head dim, block_q or grid the kernels were
 // not built for, or -2 if a TMA tensor map could not be made.  `body`
-// (flash_body in the wrapper) picks the kernel: narrow (bf16, hd 32 and 64;
-// block_q 128), persist (bf16, hd 72, 96 and 128; `ctas` CTAs walking the
-// work tiles in the order `kv_groups` names), hd256 (bf16; block_q 64 or
-// 128), f32 (every head dim).  A body ignores the arguments it does not
+// (flash_body in the wrapper) picks the kernel: persist (bf16, hd 32, 64,
+// 72, 96 and 128; `ctas` CTAs walking the work tiles in the order
+// `kv_groups` names), hd256 (bf16; block_q 64 or 128), f32 (every head
+// dim).  A body ignores the arguments it does not
 // read.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int body,
@@ -1114,16 +959,13 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (body) {
-    case kNarrow:
-      if (block_q != 128) return -1;
-      if (hd == 32)
-        return wg::launch_rows<32, 2>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal,
-                                      window, s);
-      if (hd == 64)
-        return wg::launch_rows<64, 2>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal,
-                                      window, s);
-      return -1;
     case kPersist:
+      if (hd == 32)
+        return wg::launch_persist<32>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal,
+                                      window, ctas, kv_groups, s);
+      if (hd == 64)
+        return wg::launch_persist<64>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal,
+                                      window, ctas, kv_groups, s);
       if (hd == 72)
         return wg::launch_persist<72>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal,
                                       window, ctas, kv_groups, s);

@@ -6,9 +6,10 @@ Replaces the Pallas TPU kernel ``src/repro/kernels/decode_attention.py``
 picks the implementation from the device of its inputs: CPU and meta
 tensors go to :func:`decode_attention_plain`, CUDA tensors launch the
 kernel or raise.  The kernel has two bodies, and :func:`decode_instance`
-names the one a launch runs: the tensor cores for bf16 at hd 256 and at
-hd 128 with 2 to 8 query heads a KV head (minitron-8b, llama4-scout),
-split by :func:`split_plan_tc` at hd 128; the CUDA cores for the rest,
+names the one a launch runs: the tensor cores for bf16 at hd 256, at hd
+128 with 2 to 8 query heads a KV head (minitron-8b, llama4-scout) and at
+hd 64 with up to 8 (minicpm-2b, zamba2-1.2b, whisper-tiny), split by
+:func:`split_plan_tc` at hd 64 and 128; the CUDA cores for the rest,
 split by :func:`split_plan`.
 ``decode_attention.launches`` counts kernel launches.
 
@@ -43,19 +44,21 @@ MAX_GROUP = 32              # partials one ticket combine reads (the kernel's)
 TICKET_HEAD_DIMS = (256,)   # instances that combine by tickets at any plan
 TC_MIN_CHUNK = 256          # keys per CTA at least on the hd 128 tensor cores
 # bf16 head dims on the tensor cores, with the query heads a KV head there
-TENSOR_CORE_GROUPS = {128: range(2, 9), 256: range(1, 5)}
+TENSOR_CORE_GROUPS = {64: range(1, 9), 128: range(2, 9), 256: range(1, 5)}
 
 
 def decode_instance(hd: int, G: int, dtype: torch.dtype) -> str:
     """Which of the kernel's two bodies a launch at head dim ``hd`` with
     ``G`` query heads a KV head runs: ``"tensor_cores"`` (``dec_kernel_tc``,
-    ``mma.sync`` on TMA-loaded 16-key blocks) for bf16 at hd 256 and at hd
-    128 with 2 <= G <= 8, where the CUDA cores' per-head shuffle reductions
-    cost more than the loads; else ``"cuda_cores"`` (``dec_kernel``): float32,
-    whose tolerance needs full-f32 products, and the byte-bound rest (G = 1
-    would leave 7 of the tensor-core tile's 8 head columns empty).  The
-    wrapper passes the choice to the C launcher, which launches that body
-    or refuses: this function alone decides."""
+    ``mma.sync`` on TMA-loaded 16-key blocks) for bf16 at hd 256, at hd 128
+    with 2 <= G <= 8 and at hd 64 with G <= 8, where the CUDA cores'
+    per-score shuffle reductions cost more than the loads (at hd 64 even G
+    = 1, whose mma leaves 7 of its 8 head columns empty: that costs issue
+    slots, not bytes); else ``"cuda_cores"`` (``dec_kernel``): float32,
+    whose tolerance needs full-f32 products, hd 128 at G = 1, and the head
+    dims no published config decodes at.  The wrapper passes the choice to
+    the C launcher, which launches that body or refuses: this function
+    alone decides."""
     if dtype == torch.bfloat16 and G in TENSOR_CORE_GROUPS.get(hd, ()):
         return "tensor_cores"
     return "cuda_cores"
@@ -91,7 +94,8 @@ def split_plan(B: int, Hkv: int, L: int, sm_count: int) -> Tuple[int, int]:
 
 
 def split_plan_tc(B: int, Hkv: int, L: int, sm_count: int) -> Tuple[int, int]:
-    """The plan of the hd 128 tensor-core body (:func:`decode_instance`):
+    """The plan of the tensor-core body at hd 64 and 128
+    (:func:`decode_instance`):
     ``(n_split, chunk)`` as :func:`split_plan` gives them, ranges of whole
     32-key tiles, but at most one CTA per SM over ``B * Hkv * n_split``, at
     most ``MAX_SPLIT`` ranges (one cluster), and no more ranges than
@@ -103,7 +107,10 @@ def split_plan_tc(B: int, Hkv: int, L: int, sm_count: int) -> Tuple[int, int]:
     KV heads, G 6, the kernel took 0.0194 ms at batch 8 over 544 keys in 2
     ranges against 0.0282 in :func:`split_plan`'s 6, and 0.0639–0.0645 ms
     at batch 1 over 32768 keys in 8 ranges against 0.0663–0.0667 in its 16
-    (``tools/time_kernels.py --hd128-plans``; PERF.md, section 6)."""
+    (``tools/time_kernels.py --hd128-plans``; PERF.md, section 6).  At hd
+    64, G 1, 36 heads the same rule gives 1 range at batch 8 over 544 keys
+    (288 CTAs, three an SM) and 3 at batch 1, the fastest of the 1 to 8
+    that ``--hd64-plans`` timed there."""
     tiles = max(1, -(-L // SPLIT_TILE))
     n = max(1, min(MAX_SPLIT, sm_count // max(1, B * Hkv),
                    -(-L // TC_MIN_CHUNK), tiles))
@@ -134,10 +141,10 @@ def decode_plan(B: int, Hq: int, Hkv: int, L: int, hd: int,
                                                              int]:
     """The launch a decode at these shapes makes: ``(instance, n_split,
     chunk, group)``, the body (:func:`decode_instance`), its plan
-    (:func:`split_plan_tc` for the hd 128 tensor-core body, else
+    (:func:`split_plan_tc` for the tensor-core body at hd 64 and 128, else
     :func:`split_plan`) and the combine (:func:`split_groups`)."""
     instance = decode_instance(hd, Hq // Hkv, dtype)
-    plan = (split_plan_tc if instance == "tensor_cores" and hd == 128
+    plan = (split_plan_tc if instance == "tensor_cores" and hd != 256
             else split_plan)
     n_split, chunk = plan(B, Hkv, L, sm_count)
     return instance, n_split, chunk, split_groups(n_split, hd)

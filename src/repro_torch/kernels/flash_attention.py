@@ -7,13 +7,13 @@ the implementation from the device of its inputs: CPU and meta tensors go to
 :func:`flash_attention_plain`, CUDA tensors launch the kernel or raise.
 ``flash_attention.launches`` counts kernel launches.
 
-On the card the kernel has four bodies, and :func:`flash_body` alone picks
-one from the head dim and the dtype: bf16 at hd 32 and 64 runs ``narrow``
-(one CTA per 128 q rows, two CTAs an SM), bf16 at hd 72, 96 and 128
+On the card the kernel has three bodies, and :func:`flash_body` alone
+picks one from the head dim and the dtype: bf16 at hd 32 to 128 runs
 ``persistent`` (at most one CTA an SM, :func:`flash_ctas` of them, each
 walking many 128-row work tiles in :func:`flash_order`'s order, so that one
-tile's loads and store overlap another's products), bf16 at hd 256 ``hd256`` (64 or 128 q rows a CTA,
-:func:`flash_block_q`), and float32 ``f32`` (the CUDA cores).  The C
+tile's loads and store overlap another's products), bf16 at hd 256
+``hd256`` (64 or 128 q rows a CTA, :func:`flash_block_q`), and float32
+``f32`` (the CUDA cores).  The C
 launcher takes the body as it is given and refuses one it was not built
 for at that head dim; there is no other route for a CUDA tensor.
 
@@ -28,6 +28,8 @@ a gradient to carry (serving) the kernel is called directly, with no
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import List
 
 import torch
 
@@ -40,38 +42,71 @@ DTYPES = (torch.bfloat16, torch.float32)
 # pointers, then ints, then the stream: the C launcher's parameters
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
 # the C launcher's bodies, in its numbering (csrc/flash_attention.cu, Body)
-BODIES = ("narrow", "persistent", "hd256", "f32")
-# q rows per CTA of the bf16 kernel; at hd 256 the wrapper picks from both
+BODIES = ("persistent", "hd256", "f32")
+# q rows of a persistent work tile and keys of its K/V tiles; at hd 256
+# the wrapper picks the rows from both
 BLOCK_Q = 128
+KEYS = 128
 BLOCK_Q_HD256 = (64, 128)
-# CTAs an SM of the persistent body (its 193 KB of shared memory at hd 128)
+# the persistent body's head dims, and its CTAs an SM (its 384 threads of
+# 168 registers fill the register file; 193 KB of shared memory at hd 128)
+PERSISTENT_HEAD_DIMS = (32, 64, 72, 96, 128)
 PERSISTENT_CTAS_PER_SM = 1
 
 
 def flash_body(hd: int, dtype: torch.dtype) -> str:
     """The kernel body that runs ``hd`` and ``dtype`` on the card: ``"f32"``
-    for float32, ``"hd256"`` at hd 256, ``"narrow"`` at hd 32 and 64 (two
-    CTAs an SM overlap one another), ``"persistent"`` at hd 72, 96 and 128,
+    for float32, ``"hd256"`` at hd 256, ``"persistent"`` at hd 32 to 128,
     where one CTA fills an SM and so walks many work tiles."""
     if dtype == torch.float32:
         return "f32"
-    if hd == 256:
-        return "hd256"
-    return "narrow" if hd <= 64 else "persistent"
+    return "hd256" if hd == 256 else "persistent"
 
 
 def flash_ctas(B: int, Sq: int, Hq: int, hd: int, sm_count: int) -> int:
     """The persistent body's grid: one CTA a work tile (128 q rows of one
     head and batch row) up to ``PERSISTENT_CTAS_PER_SM`` an SM; past that
     each CTA takes every ``grid``-th tile, heaviest first."""
-    if not 64 < hd <= 128:
-        raise ValueError(f"the persistent flash body takes hd 72 to 128, "
-                         f"got {hd}")
+    if hd not in PERSISTENT_HEAD_DIMS:
+        raise ValueError(f"the persistent flash body takes hd "
+                         f"{PERSISTENT_HEAD_DIMS}, got {hd}")
     tiles = B * Hq * -(-Sq // BLOCK_Q)
     return max(1, min(tiles, PERSISTENT_CTAS_PER_SM * sm_count))
 
 
-def flash_order(B: int, Sk: int, Hkv: int, hd: int, l2_bytes: int) -> str:
+def walk_loads(order: str, B: int, Sq: int, Sk: int, Hq: int, Hkv: int,
+               ctas: int, causal: bool = True, window: int = 0
+               ) -> List[int]:
+    """The live K/V tiles of 128 keys that each of the persistent body's
+    ``ctas`` CTAs runs when it walks the work tiles in ``order``: work tile
+    w (the kernel's ``tile_of``) goes to CTA ``w % ctas`` in even rounds of
+    the grid and to ``ctas - 1 - w % ctas`` in odd ones (``work``), and
+    holds the live tiles of its 128 q rows (``TileRange``)."""
+    nq, nk, G = -(-Sq // BLOCK_Q), -(-Sk // KEYS), Hq // Hkv
+    live = []
+    for iq in range(nq):
+        first_q = iq * BLOCK_Q + Sk - Sq
+        last_q = first_q + BLOCK_Q - 1
+        hi = nk if not causal else (0 if last_q < 0 else
+                                    min(nk, last_q // KEYS + 1))
+        lo = 0
+        while window > 0 and lo < hi and \
+                first_q - (lo * KEYS + KEYS - 1) >= window:
+            lo += 1
+        live.append(hi - lo)
+    loads = [0] * ctas
+    for w in range(B * Hq * nq):
+        iq = (nq - 1 - (w // G) % nq if order == "groups"
+              else nq - 1 - w // (Hq * B))
+        c = w % ctas
+        loads[ctas - 1 - c if (w // ctas) % 2 else c] += live[iq]
+    return loads
+
+
+@functools.lru_cache(maxsize=256)
+def flash_order(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, hd: int,
+                ctas: int, l2_bytes: int, causal: bool = True,
+                window: int = 0) -> str:
     """The order in which the persistent body's CTAs walk the work tiles.
     ``"heads"``: the q heads fastest, then the batch rows, then the q tile
     from the heaviest down, so that the G heads of a KV head share its K/V
@@ -79,15 +114,27 @@ def flash_order(B: int, Sk: int, Hkv: int, hd: int, l2_bytes: int) -> str:
     ``"groups"``: each KV head's G x ceil(Sq / 128) tiles together (heads
     fastest, then the q tile, heaviest first), where the launch's K/V
     (``2 * B * Sk * Hkv * hd`` bf16 values) exceeds half the L2 and would
-    be read again from memory by each round of the first order."""
+    be read again from memory by each round of the first order, unless
+    that order loads some CTA with more live K/V tiles than the first
+    (:func:`walk_loads`): over a long prompt a head's q tiles, of
+    ``ceil(Sq / 128)`` different weights, fall unevenly on the rounds.  On
+    an H100, minicpm-2b's 36 heads at hd 64 took 0.0532 ms by groups and
+    0.0593 by heads at bucket 8 over 512 tokens (both orders at most 24
+    tiles a CTA), and 0.2228 by groups and 0.2101 by heads at batch 1 over
+    4096 tokens (164 and 146 tiles; PERF.md, section 6)."""
     kv = 2 * B * Sk * Hkv * hd * 2
-    return "groups" if 2 * kv > l2_bytes else "heads"
+    if 2 * kv <= l2_bytes:
+        return "heads"
+    loads = {order: max(walk_loads(order, B, Sq, Sk, Hq, Hkv, ctas, causal,
+                                   window))
+             for order in ("heads", "groups")}
+    return "groups" if loads["groups"] <= loads["heads"] else "heads"
 
 
 def flash_block_q(B: int, Sq: int, Hq: int, hd: int, sm_count: int) -> int:
-    """q rows per CTA of the ``narrow`` and ``hd256`` bodies (the
-    persistent one's work tiles are 128 rows).  128 (two warpgroups) but at
-    hd 256, whose CTA holds one SM: there 64 (one warpgroup) where the 64-row
+    """q rows per CTA of the ``hd256`` body (the persistent one's work
+    tiles are ``BLOCK_Q`` rows, which other head dims return).  At hd 256
+    a CTA holds one SM: there 64 (one warpgroup) where the 64-row
     grid of ``B * Hq * ceil(Sq / 64)`` CTAs fits one CTA per SM, which
     halves the heaviest CTA's work at batch 1, and 128 where it does not,
     which halves the K/V tiles read per q row."""
@@ -187,7 +234,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ctas = groups = 0
     if body == "persistent":
         ctas = flash_ctas(B, Sq, Hq, hd, sms)
-        groups = int(flash_order(B, Sk, Hkv, hd, l2_bytes(q.device))
+        groups = int(flash_order(B, Sq, Sk, Hq, Hkv, hd, ctas,
+                                 l2_bytes(q.device), causal, window)
                      == "groups")
     fn = _build.launcher("flash_attention", _ARGTYPES)
     with torch.cuda.device(q.device):

@@ -120,10 +120,11 @@ def test_split_plan_fills_the_card_on_the_minicpm_path(bucket):
 
 
 def test_split_plan_at_the_serving_buckets():
-    """The plans the minicpm-2b step takes on an H100: 6 splits of 96 keys
-    at bucket 1 (216 CTAs), 2 of 288 at bucket 8 (576)."""
-    assert split_plan(1, 36, 544, H100_SMS) == (6, 96)
-    assert split_plan(8, 36, 544, H100_SMS) == (2, 288)
+    """The plans the minicpm-2b step takes on an H100 (bf16 at hd 64, G 1:
+    the tensor cores, ``split_plan_tc``): 3 splits of 192 keys at bucket 1
+    (108 CTAs), 1 of 544 at bucket 8 (288, three an SM)."""
+    assert split_plan_tc(1, 36, 544, H100_SMS) == (3, 192)
+    assert split_plan_tc(8, 36, 544, H100_SMS) == (1, 544)
 
 
 @pytest.mark.parametrize("plan", PLANS, ids=str)
@@ -161,15 +162,21 @@ def test_split_plan_at_the_hd128_grouped_shapes(case):
 
 
 @pytest.mark.parametrize("case", [
-    # (hd, G, dtype, instance): bf16 on the tensor cores at hd 256 and at
-    # hd 128 with 2 <= G <= 8; G 1, float32 and hd <= 96 on the CUDA cores
+    # (hd, G, dtype, instance): bf16 on the tensor cores at hd 256, at hd
+    # 128 with 2 <= G <= 8 and at hd 64 with G <= 8; hd 128 at G 1, hd 64
+    # past 8 heads a KV head, float32 and hd 32, 72 and 96 on the CUDA
+    # cores
     *[(128, G, torch.bfloat16, "tensor_cores") for G in range(2, 9)],
     *[(256, G, torch.bfloat16, "tensor_cores") for G in (1, 2, 4)],
+    *[(64, G, torch.bfloat16, "tensor_cores") for G in (1, 4, 8)],
     (128, 1, torch.bfloat16, "cuda_cores"),
+    (64, 16, torch.bfloat16, "cuda_cores"),
     *[(hd, G, torch.float32, "cuda_cores")
       for hd, G in ((128, 1), (128, 4), (128, 6), (128, 8), (256, 4))],
-    *[(hd, G, dt, "cuda_cores") for hd in (32, 64, 72, 96)
-      for G in (1, 4, 8) for dt in (torch.bfloat16, torch.float32)]],
+    *[(hd, G, torch.float32, "cuda_cores") for hd in (32, 64, 72, 96)
+      for G in (1, 4, 8)],
+    *[(hd, G, torch.bfloat16, "cuda_cores") for hd in (32, 72, 96)
+      for G in (1, 4, 8)]],
     ids=str)
 def test_decode_instance_picks_the_body(case):
     hd, G, dtype, want = case
@@ -178,13 +185,17 @@ def test_decode_instance_picks_the_body(case):
 
 @pytest.mark.parametrize("case", [
     # (B, Hq, Hkv, L, hd, dtype): (instance, n_split, chunk, group) on an
-    # H100 at the serving paths' decodes: minicpm-2b (hd 64, G 1) over a
-    # cluster and gemma3-1b (hd 256, one KV head) in one ticket group, at
-    # buckets 8 and 1 over 544 keys; gemma3-1b in float32; minitron-8b (hd
-    # 128, G 4) over a cluster; gemma3-1b's global layer at batch 1 over
-    # 32768 keys, by tickets in groups
-    ((8, 36, 36, 544, 64, torch.bfloat16), ("cuda_cores", 2, 288, 0)),
-    ((1, 36, 36, 544, 64, torch.bfloat16), ("cuda_cores", 6, 96, 0)),
+    # H100 at the serving paths' decodes: minicpm-2b (hd 64, G 1) on the
+    # tensor cores, one range at bucket 8 and three over a cluster at 1,
+    # and over 32768 keys at batch 1; gemma3-1b (hd 256, one KV head) in
+    # one ticket group, at buckets 8 and 1 over 544 keys; gemma3-1b in
+    # float32; minitron-8b (hd 128, G 4) over a cluster; gemma3-1b's global
+    # layer at batch 1 over 32768 keys, by tickets in groups
+    ((8, 36, 36, 544, 64, torch.bfloat16), ("tensor_cores", 1, 544, 0)),
+    ((1, 36, 36, 544, 64, torch.bfloat16), ("tensor_cores", 3, 192, 0)),
+    ((1, 36, 36, 32768, 64, torch.bfloat16),
+     ("tensor_cores", 3, 10944, 0)),
+    ((8, 36, 36, 544, 64, torch.float32), ("cuda_cores", 2, 288, 0)),
     ((8, 4, 1, 544, 256, torch.bfloat16), ("tensor_cores", 6, 96, 6)),
     ((1, 4, 1, 544, 256, torch.bfloat16), ("tensor_cores", 6, 96, 6)),
     ((8, 4, 1, 544, 256, torch.float32), ("cuda_cores", 6, 96, 6)),
@@ -295,12 +306,17 @@ def test_split_combine_matches_the_plain_version(case):
 @pytest.mark.parametrize("case", [(8, 544, 32, 8, 128, [544, 0, 1, 300,
                                                      64, 65, 543, 128]),
                                   (1, 4096, 48, 8, 128, [3001]),
-                                  (2, 1001, 40, 8, 128, [17, 1001])],
+                                  (2, 1001, 40, 8, 128, [17, 1001]),
+                                  # minicpm-2b's batch 1 at hd 64, G 1,
+                                  # ending in the first range; hd 64, G 4
+                                  (1, 544, 36, 36, 64, [150]),
+                                  (2, 333, 16, 4, 64, [333, 0])],
                          ids=str)
 def test_split_combine_at_the_tensor_core_plan_matches_the_plain_version(
         case):
-    """The hd 128 grouped-query decode's split (``split_plan_tc``) and its
-    cluster combine, ragged, with a row at 0 and ranges past valid_len."""
+    """The tensor-core decode's split (``split_plan_tc``: the grouped
+    queries at hd 128, and hd 64) and its cluster combine, ragged, with a
+    row at 0 and ranges past valid_len."""
     B, L, Hq, Hkv, hd, vl = case
     rng = np.random.default_rng(7)
     q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
@@ -363,3 +379,34 @@ def test_split_combine_in_groups_matches_the_pallas_kernel():
 def test_flash_block_q_picks_by_the_grid(case):
     B, Sq, Hq, hd, sms, rows = case
     assert flash_block_q(B, Sq, Hq, hd, sms) == rows
+
+
+@pytest.mark.parametrize("case", [
+    # (B, L, Hq, Hkv, valid_len): minicpm-2b's decode at hd 64, G 1, cut to
+    # 6 heads: full rows, ragged rows, a row at 0 (zeros, as the Pallas
+    # kernel gives)
+    (2, 300, 6, 6, [300, 77]),
+    (3, 544, 6, 6, [544, 0, 129]),
+    (1, 1000, 4, 4, [999])], ids=str)
+def test_decode_plain_matches_jax_at_hd64_multi_head(case):
+    """The plain version, and the split-and-combine model at the plan
+    minicpm-2b's decode takes at batch 1 over L keys (two or three
+    ranges), against the Pallas kernel in interpret mode at hd 64, one
+    query head a KV head."""
+    B, L, Hq, Hkv, vl = case
+    hd = 64
+    rng = np.random.default_rng(8)
+    q = rng.standard_normal((B, Hq, hd)).astype(np.float32)
+    k = rng.standard_normal((B, L, Hkv, hd)).astype(np.float32)
+    v = rng.standard_normal((B, L, Hkv, hd)).astype(np.float32)
+    vl = np.array(vl, np.int32)
+    want = np.asarray(j_decode_pallas(*map(jnp.asarray, (q, k, v, vl)),
+                                      block_k=64, interpret=True))
+    tq, tk, tv, tvl = map(torch.from_numpy, (q, k, v, vl))
+    got = decode_attention_plain(tq, tk, tv, tvl)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    n_split, chunk = split_plan_tc(1, 36, L, H100_SMS)
+    assert n_split > 1
+    model = split_combine(tq, tk, tv, tvl, n_split, chunk,
+                          split_groups(n_split, hd))
+    np.testing.assert_allclose(model.numpy(), want, **TOL)

@@ -153,12 +153,27 @@ PERSISTENT_CASES = [
     (2, 400, 400, 20, 4, 96, False, 0),
     (5, 129, 129, 16, 16, 72, False, 0),
     (1, 4096, 4096, 48, 8, 128, True, 4096),
+    # hd 64 and 32 (minicpm-2b's G 1, the reduced GQA configs' G 2 and 4):
+    # more work tiles than CTAs (bucket 8, a long prompt) and fewer (batch
+    # 1, a short prompt), Sq no multiple of 128, Sq < Sk, Sq = 1, a window
+    # inside a tile, non-causal (whisper's encoder), hd 32
+    (8, 512, 512, 36, 36, 64, True, 0),
+    (4, 512, 512, 36, 36, 64, True, 0),
+    (1, 4096, 4096, 36, 36, 64, True, 0),
+    (1, 1500, 1500, 6, 6, 64, False, 0),
+    (2, 333, 333, 8, 4, 64, True, 0),
+    (3, 190, 450, 16, 4, 64, True, 0),
+    (2, 1, 700, 12, 6, 64, True, 0),
+    (1, 300, 300, 4, 4, 64, True, 16),
+    (2, 129, 129, 8, 2, 64, False, 0),
+    (8, 512, 512, 16, 16, 32, True, 0),
+    (2, 77, 200, 4, 2, 32, True, 50),
 ]
 
 
 @pytest.mark.parametrize("case", PERSISTENT_CASES, ids=str)
 def test_flash_attention_persistent_body_matches_plain(cuda, case):
-    """bf16 at hd 72 to 128 runs the persistent body (a grid of at most
+    """bf16 at hd 32 to 128 runs the persistent body (a grid of at most
     one CTA an SM, each walking its work tiles): against the plain version
     in the cases above."""
     test_flash_attention_kernel_matches_plain(cuda, case, torch.bfloat16)
@@ -166,7 +181,9 @@ def test_flash_attention_persistent_body_matches_plain(cuda, case):
 
 @pytest.mark.parametrize("case", [(8, 512, 512, 40, 8, 128, True, 0),
                                   (2, 300, 500, 32, 32, 96, True, 64),
-                                  (1, 128, 128, 4, 4, 72, False, 0)],
+                                  (1, 128, 128, 4, 4, 72, False, 0),
+                                  (8, 512, 512, 36, 36, 64, True, 0),
+                                  (1, 700, 700, 8, 2, 32, True, 100)],
                          ids=str)
 def test_flash_attention_persistent_replays_equal_bit_for_bit(cuda, case):
     """Two eager launches, two replays of a captured launch and an eager
@@ -235,7 +252,7 @@ def test_flash_attention_runs_the_body_flash_body_names(cuda, tmp_path, hd,
                                                         dtype):
     """The kernel a launch runs on the card is the body ``flash_body``
     names: ``fa_kernel_persist`` for ``persistent``, ``fa_kernel_wgmma``
-    for ``narrow`` and ``hd256``, ``fa_kernel_f32`` for ``f32``, at this
+    for ``hd256``, ``fa_kernel_f32`` for ``f32``, at this
     head dim; read from the kernel node of a captured graph (the
     profiler, run many times in one process, stops seeing kernels)."""
     import re
@@ -256,12 +273,12 @@ def test_flash_attention_runs_the_body_flash_body_names(cuda, tmp_path, hd,
     graph.debug_dump(str(dot))
     found = set(re.findall(r"fa_kernel_(persist|wgmma|f32)(?:ILi|<)(\d+)",
                            dot.read_text()))
-    want = {"persistent": "persist", "narrow": "wgmma", "hd256": "wgmma",
+    want = {"persistent": "persist", "hd256": "wgmma",
             "f32": "f32"}[flash_body(hd, dtype)]
     assert found == {(want, str(hd))}, found
 
 
-@pytest.mark.parametrize("hd", [72, 96, 128])
+@pytest.mark.parametrize("hd", [32, 64, 72, 96, 128])
 def test_the_persistent_flash_body_holds_unserialised_hgmma(cuda, hd):
     """The persistent instances (both walk orders) hold HGMMA in their
     SASS, spill nothing, have no wgmma that ptxas serialises (its
@@ -328,7 +345,9 @@ def test_decode_attention_kernel_matches_plain_at_hd256(cuda, case, dtype):
                                   (8, 544, 4, 1, 256, 500),
                                   (1, 4096, 8, 1, 128, 4000),
                                   (1, 32768, 48, 8, 128, 30001),
-                                  (8, 544, 40, 8, 128, 500)], ids=str)
+                                  (8, 544, 40, 8, 128, 500),
+                                  (8, 544, 36, 36, 64, 500),
+                                  (1, 32768, 36, 36, 64, 30001)], ids=str)
 def test_decode_attention_replays_equal_bit_for_bit(cuda, case):
     """A decode captured in a CUDA graph at a plan that combines by tickets
     (132 CTAs in groups at a 32k cache; one group at bucket 8; hd 128 past
@@ -474,6 +493,51 @@ def test_decode_attention_kernel_matches_plain_at_hd128_grouped(cuda, case,
     test_decode_attention_split_kernel_matches_plain(cuda, case, dtype)
 
 
+@pytest.mark.parametrize("case", [
+    # (B, L, Hq, Hkv, hd, valid_len): the decode at hd 64, which bf16 runs
+    # on the tensor cores at G <= 8 (minicpm-2b's G 1, the reduced GQA
+    # configs' G 2 and 4): the serving buckets 8 and 1 over 544 keys,
+    # ragged rows, rows at 0, valid_len no multiple of 16, one key, a
+    # long cache at batch 1, G 8 (the mma's last column)
+    (8, 544, 36, 36, 64, [544, 0, 1, 300, 64, 65, 543, 17]),
+    (1, 544, 36, 36, 64, [544]),
+    (1, 544, 36, 36, 64, [37]),
+    (4, 1000, 16, 8, 64, [999, 0, 15, 500]),
+    (3, 333, 16, 4, 64, [333, 1, 0]),
+    (2, 100, 32, 4, 64, [100, 51]),
+    (1, 4096, 36, 36, 64, [4001]),
+    (1, 32768, 36, 36, 64, [32768]),
+    (1, 32768, 36, 36, 64, [20001]),
+    (2, 9000, 8, 1, 64, [0, 8999])], ids=str)
+def test_decode_attention_kernel_matches_plain_at_hd64(cuda, case):
+    test_decode_attention_split_kernel_matches_plain(cuda, case,
+                                                     torch.bfloat16)
+
+
+@pytest.mark.parametrize("plan", [(16, 2048), (40, 100), (1, 544),
+                                  (8, 96)], ids=str)
+@pytest.mark.parametrize("case", [(1, 32768, 36, 36, 64, [32768]),
+                                  (2, 544, 36, 36, 64, [0, 543])], ids=str)
+def test_decode_attention_tensor_cores_at_other_plans_at_hd64(
+        cuda, monkeypatch, case, plan):
+    """The hd 64 tensor-core body at plans its planner does not give:
+    ranges past the cache (some empty), ranges no whole number of tiles,
+    one range, and past one cluster (tickets), against the plain
+    version."""
+    import importlib
+    dm = importlib.import_module("repro_torch.kernels.decode_attention")
+    B, L, Hq, Hkv, hd, vl = case
+    n_split, chunk = plan
+    if n_split * chunk < L:
+        chunk = -(-L // n_split)
+    monkeypatch.setattr(dm, "split_plan_tc", lambda *_: (n_split, chunk))
+    monkeypatch.setattr(dm, "split_plan", lambda *_: (n_split, chunk))
+    assert dm.decode_instance(hd, Hq // Hkv, torch.bfloat16) == \
+        "tensor_cores"
+    test_decode_attention_split_kernel_matches_plain(cuda, case,
+                                                     torch.bfloat16)
+
+
 @pytest.mark.parametrize("plan", [(16, 256), (12, 350), (40, 103)], ids=str)
 @pytest.mark.parametrize("case", [(1, 4096, 48, 8, 128, [4096]),
                                   (2, 4001, 32, 8, 128, [0, 3999])], ids=str)
@@ -494,12 +558,14 @@ def test_decode_attention_tensor_cores_past_one_cluster_at_hd128(
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("case", [(64, 1), (128, 1), (128, 2), (128, 6),
-                                  (128, 8), (256, 4), (96, 4)], ids=str)
+                                  (128, 8), (256, 4), (96, 4), (64, 4),
+                                  (64, 8), (64, 16)], ids=str)
 def test_decode_attention_runs_the_instance_decode_instance_names(cuda, case,
                                                                  dtype):
     """The body that a launch runs on the card, by the profiler's kernel
     name, is the one ``decode_instance`` names: ``dec_kernel_tc`` for bf16
-    at hd 256 and at hd 128 with 2 <= G <= 8, ``dec_kernel`` else."""
+    at hd 256, at hd 128 with 2 <= G <= 8 and at hd 64 with G <= 8,
+    ``dec_kernel`` else."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels.decode_attention import decode_instance
@@ -519,9 +585,9 @@ def test_decode_attention_runs_the_instance_decode_instance_names(cuda, case,
     assert on_tc == (decode_instance(hd, G, dtype) == "tensor_cores"), names
 
 
-@pytest.mark.parametrize("hd", [128, 256])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 def test_bf16_decode_runs_its_grouped_products_on_the_tensor_cores(cuda, hd):
-    """``dec_kernel_tc`` at hd 128 and 256 holds HMMA (``mma.sync``)
+    """``dec_kernel_tc`` at hd 64, 128 and 256 holds HMMA (``mma.sync``)
     instructions in its SASS and spills nothing (ptxas)."""
     import shutil
     import subprocess
@@ -869,9 +935,13 @@ def _grads_against_plain(kind, fn, plain, inputs, dtype):
                                   (2, 40, 200, 4, 4, 256, False, 0),
                                   (2, 130, 130, 8, 2, 64, True, 0),
                                   (2, 300, 300, 24, 4, 128, True, 0),
-                                  (3, 200, 200, 8, 8, 96, True, 64)],
+                                  (3, 200, 200, 8, 8, 96, True, 64),
+                                  (2, 300, 300, 6, 6, 64, True, 16),
+                                  (2, 1, 200, 4, 4, 64, True, 0),
+                                  (2, 150, 150, 4, 2, 32, False, 0)],
                          ids=["causal", "window", "cross", "gqa",
-                              "gqa128", "window96"])
+                              "gqa128", "window96", "window64", "sq1_64",
+                              "cross32"])
 def test_flash_attention_gradients_match_the_plain_version(cuda, case,
                                                            dtype):
     B, Sq, Sk, Hq, Hkv, hd, causal, w = case

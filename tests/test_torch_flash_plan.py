@@ -1,12 +1,13 @@
 """The flash kernel's choice of body and its persistent grid, on the CPU:
-``flash_body`` (which of the four bodies runs a head dim and dtype on the
+``flash_body`` (which of the three bodies runs a head dim and dtype on the
 card), ``flash_ctas`` (the persistent body's grid) and ``flash_order``
 (its walk); a plain model of what the persistent body computes (each CTA
 walks its work tiles of 128 q rows heaviest first, forwards and backwards
 through the grid's rounds, and runs the online softmax over each tile's
 live 128-key tiles), held against the Pallas kernel (interpret mode); and
-the plain version against the JAX reference at the grouped-query shapes
-of hd 128 and 96 that the persistent body serves."""
+the plain version against the JAX reference at the shapes that the
+persistent body serves: the grouped-query ones of hd 128, hd 96, and
+minicpm-2b's multi-head attention at hd 64 cut small."""
 import numpy as np
 import pytest
 
@@ -20,7 +21,7 @@ from repro.kernels.flash_attention import \
     flash_attention as j_flash_pallas  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     BLOCK_Q, BODIES, HEAD_DIMS, flash_attention, flash_body, flash_ctas,
-    flash_order)
+    flash_order, walk_loads)
 
 TOL = dict(rtol=3e-5, atol=3e-5)    # f32, as tests/test_kernels.py
 NEG_INF = -1e30
@@ -30,7 +31,7 @@ H100_L2 = 50 * 2 ** 20
 
 
 @pytest.mark.parametrize("hd,dtype,body", [
-    (32, torch.bfloat16, "narrow"), (64, torch.bfloat16, "narrow"),
+    (32, torch.bfloat16, "persistent"), (64, torch.bfloat16, "persistent"),
     (72, torch.bfloat16, "persistent"), (96, torch.bfloat16, "persistent"),
     (128, torch.bfloat16, "persistent"), (256, torch.bfloat16, "hd256"),
     *[(hd, torch.float32, "f32") for hd in HEAD_DIMS]], ids=str)
@@ -47,7 +48,11 @@ def _tiles(B, Sq, Hq):
     # (B, Sq, Hq, hd, SM count): the serving buckets of minitron-8b,
     # llama4-scout, mixtral-8x22b (8 KV heads, G 4, 5, 6) and phi-3 (32
     # heads) over 512 tokens, batch 1 over 4096, ragged and tiny shapes,
-    # another SM count
+    # another SM count; minicpm-2b (36 heads of hd 64) at buckets 8 and 1
+    # and over 4096 tokens, zamba2-1.2b (32 heads), whisper-tiny's encoder
+    # (6 heads over 1500 frames), hd 32
+    (8, 512, 36, 64, 132), (1, 512, 36, 64, 132), (1, 4096, 36, 64, 132),
+    (8, 512, 32, 64, 132), (1, 1500, 6, 64, 132), (8, 512, 16, 32, 132),
     (8, 512, 32, 128, 132), (8, 512, 40, 128, 132), (8, 512, 48, 128, 132),
     (8, 512, 32, 96, 132), (4, 512, 32, 128, 132), (2, 512, 48, 128, 132),
     (1, 512, 32, 128, 132), (1, 512, 48, 128, 132), (1, 4096, 32, 128, 132),
@@ -63,16 +68,23 @@ def test_flash_ctas_never_exceeds_the_tiles_and_fills_what_it_can(case):
 
 
 @pytest.mark.parametrize("Hq,hd", [(32, 128), (40, 128), (48, 128),
-                                   (32, 96)], ids=str)
+                                   (32, 96), (36, 64), (32, 64)], ids=str)
 def test_flash_ctas_fills_the_sms_at_bucket_8(Hq, hd):
     assert _tiles(8, 512, Hq) > H100_SMS
     assert flash_ctas(8, 512, Hq, hd, H100_SMS) == H100_SMS
 
 
-@pytest.mark.parametrize("hd", [32, 64, 256])
+@pytest.mark.parametrize("hd", [16, 48, 256])
 def test_flash_ctas_refuses_the_head_dims_of_other_bodies(hd):
     with pytest.raises(ValueError, match="persistent"):
         flash_ctas(8, 512, 32, hd, H100_SMS)
+
+
+@pytest.mark.parametrize("hd", [32, 64])
+def test_flash_ctas_accepts_the_narrow_head_dims(hd):
+    """hd 32 and 64 run the persistent body: one CTA an SM at bucket 8."""
+    assert flash_ctas(8, 512, 36, hd, H100_SMS) == H100_SMS
+    assert flash_ctas(1, 100, 2, hd, H100_SMS) == 2
 
 
 def tile_range(first_q, rows, Sk, causal, window):
@@ -171,7 +183,12 @@ def persistent_model(q, k, v, *, causal, window, ctas, order="heads"):
     (2, 160, 160, 10, 2, 128, True, 0, 132),
     (1, 130, 130, 4, 4, 96, False, 0, 7),
     (3, 1, 200, 8, 2, 128, True, 0, 4),
-    (2, 77, 77, 2, 2, 72, True, 0, 1)], ids=str)
+    (2, 77, 77, 2, 2, 72, True, 0, 1),
+    # hd 64 multi-head (minicpm-2b's G 1), a window inside a tile, and hd
+    # 32 non-causal
+    (2, 300, 300, 6, 6, 64, True, 0, 5),
+    (1, 200, 260, 4, 4, 64, True, 16, 3),
+    (1, 150, 150, 2, 2, 32, False, 0, 2)], ids=str)
 def test_the_persistent_walk_computes_the_pallas_kernels_function(case,
                                                                   order):
     B, Sq, Sk, Hq, Hkv, hd, causal, w, ctas = case
@@ -190,7 +207,9 @@ def test_the_persistent_walk_computes_the_pallas_kernels_function(case,
 @pytest.mark.parametrize("order", ["heads", "groups"])
 @pytest.mark.parametrize("B,Sq,Hq,Hkv", [(8, 512, 32, 8), (8, 512, 48, 8),
                                          (1, 4096, 32, 32), (3, 300, 12, 4),
-                                         (2, 129, 6, 6)], ids=str)
+                                         (2, 129, 6, 6), (8, 512, 36, 36),
+                                         (1, 4096, 36, 36), (1, 1500, 6, 6)],
+                         ids=str)
 def test_each_order_walks_every_tile_once(B, Sq, Hq, Hkv, order):
     ctas = min(B * Hq * -(-Sq // BLOCK_Q), H100_SMS)
     walks = persistent_walk(B, Sq, Hq, ctas, Hkv, order)
@@ -207,17 +226,49 @@ def test_each_order_walks_every_tile_once(B, Sq, Hq, Hkv, order):
 
 
 @pytest.mark.parametrize("B,Sk,Hkv,hd,order", [
-    # phi-3's join at bucket 8 (32 KV heads of hd 96: 50 MB of K/V) and at
-    # batch 1 over 4096 tokens walks by groups; at bucket 4 (25 MB, just
-    # under half the L2), 2 and 1 by heads, as the grouped-query joins (8 KV
-    # heads of hd 128: 17 MB at bucket 8 over 512 tokens) do
+    # phi-3's join at bucket 8 (32 KV heads of hd 96: 50 MB of K/V) walks
+    # by groups; at batch 1 over 4096 tokens by heads (its K/V outgrows
+    # half the L2, but the groups order would hold a CTA to 132 live K/V
+    # tiles where the heads order holds it to 128); at bucket 4 (25 MB,
+    # just under half the L2), 2 and 1 by heads, as the grouped-query joins
+    # (8 KV heads of hd 128, G 4: 17 MB at bucket 8 over 512 tokens) do
     (8, 512, 32, 96, "groups"), (8, 512, 8, 128, "heads"),
     (1, 512, 32, 96, "heads"), (1, 4096, 8, 128, "heads"),
-    (1, 4096, 32, 96, "groups"), (4, 512, 32, 96, "heads"),
-    (2, 512, 32, 96, "heads")], ids=str)
+    (1, 4096, 32, 96, "heads"), (4, 512, 32, 96, "heads"),
+    (2, 512, 32, 96, "heads"),
+    # minicpm-2b (36 KV heads of hd 64: 38 MB at bucket 8, 19 MB at 4; at
+    # batch 1 over 4096 tokens 38 MB, but groups 164 tiles a CTA, heads 146)
+    (8, 512, 36, 64, "groups"), (4, 512, 36, 64, "heads"),
+    (1, 512, 36, 64, "heads"), (1, 4096, 36, 64, "heads")], ids=str)
 def test_flash_order_walks_by_groups_where_the_kv_outgrows_half_the_l2(
         B, Sk, Hkv, hd, order):
-    assert flash_order(B, Sk, Hkv, hd, H100_L2) == order
+    Hq = 4 * Hkv if hd == 128 else Hkv
+    ctas = flash_ctas(B, Sk, Hq, hd, H100_SMS)
+    assert flash_order(B, Sk, Sk, Hq, Hkv, hd, ctas, H100_L2) == order
+
+
+@pytest.mark.parametrize("order", ["heads", "groups"])
+@pytest.mark.parametrize("case", [
+    # (B, Sq, Sk, Hq, Hkv, causal, window, ctas): the serving buckets and
+    # long prompts of minicpm-2b and phi-3, G 4, a window, Sq < Sk, Sq no
+    # multiple of 128, non-causal, fewer tiles than CTAs
+    (8, 512, 512, 36, 36, True, 0, 132), (1, 4096, 4096, 36, 36, True, 0, 132),
+    (1, 4096, 4096, 32, 32, True, 0, 132), (8, 512, 512, 32, 8, True, 0, 132),
+    (2, 700, 700, 8, 2, True, 200, 13), (1, 130, 300, 12, 2, True, 100, 5),
+    (3, 300, 300, 6, 3, False, 0, 7), (1, 1, 200, 8, 2, True, 0, 4)],
+    ids=str)
+def test_walk_loads_counts_each_ctas_live_tiles(case, order):
+    """``walk_loads`` (what ``flash_order`` weighs) against the plain model
+    of the walk: every CTA's live 128-key tiles, summed over its work
+    tiles."""
+    B, Sq, Sk, Hq, Hkv, causal, window, ctas = case
+    walks = persistent_walk(B, Sq, Hq, ctas, Hkv, order)
+    want = [sum(tile_range(iq * BLOCK_Q + Sk - Sq, BLOCK_Q, Sk, causal,
+                           window)[1]
+                - tile_range(iq * BLOCK_Q + Sk - Sq, BLOCK_Q, Sk, causal,
+                             window)[0] for iq, _, _ in walk)
+            for walk in walks]
+    assert walk_loads(order, B, Sq, Sk, Hq, Hkv, ctas, causal, window) == want
 
 
 @pytest.mark.parametrize("Hq,hd", [(32, 128), (40, 128), (48, 128),
@@ -244,7 +295,13 @@ def test_the_persistent_walk_is_balanced_at_bucket_8(Hq, hd):
     (2, 150, 150, 8, 2, 128, True, 48),
     (1, 130, 200, 12, 2, 128, True, 70),
     (2, 129, 129, 4, 4, 96, True, 0),
-    (1, 100, 100, 2, 2, 96, False, 0)], ids=str)
+    (1, 100, 100, 2, 2, 96, False, 0),
+    # minicpm-2b's attention (hd 64, G 1) cut to 6 heads: a causal join,
+    # a ragged Sq < Sk, non-causal (whisper's encoder), a window
+    (2, 130, 130, 6, 6, 64, True, 0),
+    (1, 70, 200, 6, 6, 64, True, 0),
+    (1, 150, 150, 6, 6, 64, False, 0),
+    (2, 140, 140, 4, 4, 64, True, 40)], ids=str)
 def test_flash_plain_matches_jax_at_the_persistent_head_dims(case):
     B, Sq, Sk, Hq, Hkv, hd, causal, w = case
     rng = np.random.default_rng(1)
@@ -261,3 +318,25 @@ def test_flash_plain_matches_jax_at_the_persistent_head_dims(case):
                           window=w)
     np.testing.assert_allclose(got.numpy(), want_ref, **TOL)
     np.testing.assert_allclose(got.numpy(), want_pallas, **TOL)
+
+
+@pytest.mark.parametrize("Hq", [36, 32], ids=str)
+def test_the_hd64_walk_is_balanced_in_the_order_flash_order_names(Hq):
+    """minicpm-2b's (36 heads) and zamba2-1.2b's (32) joins at bucket 8 over
+    512 tokens, hd 64, G 1: their K/V outgrow half the L2, so the CTAs
+    walk each head's four q tiles together; every tile once, and no CTA
+    holds more than one heaviest work tile (4 live 128-key tiles) over the
+    mean: 36 heads give 8.7 work tiles a CTA, so the last round's 96 fall
+    on some CTAs and not others."""
+    ctas = flash_ctas(8, 512, Hq, 64, H100_SMS)
+    order = flash_order(8, 512, 512, Hq, Hq, 64, ctas, H100_L2)
+    assert order == "groups"
+    walks = persistent_walk(8, 512, Hq, ctas, Hq, order)
+    assert sorted(t for walk in walks for t in walk) == sorted(
+        (iq, h, b) for iq in range(4) for h in range(Hq) for b in range(8))
+    load = [sum(tile_range(iq * BLOCK_Q, BLOCK_Q, 512, True, 0)[1]
+                - tile_range(iq * BLOCK_Q, BLOCK_Q, 512, True, 0)[0]
+                for iq, _, _ in walk)
+            for walk in walks]
+    assert sum(load) == 8 * Hq * (1 + 2 + 3 + 4)
+    assert max(load) <= sum(load) / len(load) + 4

@@ -1,7 +1,8 @@
 """Time the port's three CUDA kernels of a checkout on the card.
 
     python3 tools/time_kernels.py ROOT [TAG] [--hd256 | --hd128 | --hd128-plans
-                                              | --flash [--sdpa] [--clean]]
+                                              | --flash [--sdpa] [--clean]
+                                              | --hd64 | --hd64-plans]
 
 imports ``repro_torch`` from ``ROOT/src`` (building its kernels into
 ``ROOT/build``) and times, bf16, at the serving shapes that
@@ -35,7 +36,11 @@ and each bucket-8 flash's error against its plain version, and the hd
 the cache than the wrapper's plan (``hd128_plans``); with ``--flash``
 flash at hd 128 and 96 at the cases the persistent body was designed on,
 beside SDPA with ``--sdpa``, with a clean L2 with ``--clean``
-(``flash_times``).  Each time is the
+(``flash_times``).  With ``--hd64`` it times minicpm-2b's attention
+at hd 64 (36 heads, G 1) and the other hd 64 joins (whisper-tiny's
+encoder, zamba2-1.2b), each beside SDPA and its bound, and both kernels'
+one-CTA fits (``hd64_times``); with ``--hd64-plans`` that decode on each
+body and at other splits of the cache (``hd64_plans``).  Each time is the
 median of 25 CUDA-event timings, L2 flushed, a device-side sleep ahead of
 each.  It prints one JSON line.  Run it on several checkouts in turns
 (A, B, B, A) in one call to compare them on one card.
@@ -357,9 +362,194 @@ def hd128_plans(dec_mod, rnd, flush):
     return out
 
 
+def hd64_times(flash_attention, flash_attention_plain, dec_mod, rnd,
+               flush, ptxas):
+    """Attention at hd 64 (minicpm-2b: 36 heads, G 1), beside SDPA and the
+    bound: flash at buckets 8, 4, 2 and 1 over 512 tokens and at batch 1
+    over 4096 (causal; ``flash64_B*``), whisper-tiny's encoder (1 x 1500, 6
+    heads, not causal; ``flash64_whisper``), zamba2-1.2b's join (32 heads)
+    at buckets 8 and 1 (``flash64_zamba2_B*``) and at hd 32 (16 heads,
+    bucket 8; ``flash32_B8``); the decode at buckets 8, 4, 2 and 1 over 544
+    keys and at batch 1 over 4096 and 32768 keys (``decode64_B*_L*``) with
+    its error against the plain version (absolute and as a share of the
+    row's norm) and the plan the wrapper took; the one-CTA fits: flash over
+    36 q tiles of 128 rows, not causal, over 64 and 2048 keys (fixed cost
+    and cost per 64 keys; SDPA's beside), the decode over 36 CTAs (batch 1,
+    36 heads, one range each) over 1 and 32 tiles of 32 keys (fixed cost
+    and cost per 32 keys); where hd 64 runs the persistent flash body, its
+    cost per work tile (36 CTAs, the grid fixed, walking 1 and 8 work tiles
+    of one 128-key K/V tile each; ``flash64_walk_*``); and the hd 64 and
+    hd 32 instances' registers and spills from the compiler's reports
+    (``*_ptxas``)."""
+    F = torch.nn.functional
+    out = {}
+    for name, B, S, Hq, hd, causal in (
+            ("flash64_B8", 8, 512, 36, 64, True),
+            ("flash64_B4", 4, 512, 36, 64, True),
+            ("flash64_B2", 2, 512, 36, 64, True),
+            ("flash64_B1", 1, 512, 36, 64, True),
+            ("flash64_B1_S4096", 1, 4096, 36, 64, True),
+            ("flash64_whisper", 1, 1500, 6, 64, False),
+            ("flash64_zamba2_B8", 8, 512, 32, 64, True),
+            ("flash64_zamba2_B1", 1, 512, 32, 64, True),
+            ("flash32_B8", 8, 512, 16, 32, True)):
+        q, k, v = (rnd(B, S, Hq, hd).bfloat16() for _ in range(3))
+        out[f"{name}_ms"] = time_ms(
+            lambda: flash_attention(q, k, v, causal=causal), flush)
+        out[f"{name}_sdpa_ms"] = time_ms(
+            lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=causal), flush)
+        pairs = S * (S + 1) // 2 if causal else S * S
+        out[f"{name}_bound_ms"] = bound_ms(4 * 2 * q.numel(),
+                                           4 * hd * B * Hq * pairs)
+        if name == "flash64_B8":
+            out[f"{name}_err"] = (
+                flash_attention(q, k, v, causal=True).float()
+                - flash_attention_plain(q, k, v, causal=True).float()
+            ).abs().max().item()
+    fit = {}
+    for Sk in (64, 2048):
+        q = rnd(1, 128, 36, 64).bfloat16()
+        k, v = (rnd(1, Sk, 36, 64).bfloat16() for _ in range(2))
+        fit[Sk] = (time_ms(lambda: flash_attention(q, k, v, causal=False),
+                           flush),
+                   time_ms(lambda: F.scaled_dot_product_attention(
+                       q.transpose(1, 2), k.transpose(1, 2),
+                       v.transpose(1, 2)), flush))
+    for i, who in enumerate(("", "_sdpa")):
+        per_tile = (fit[2048][i] - fit[64][i]) / 31
+        out[f"flash64_fit{who}_fixed_ms"] = fit[64][i] - per_tile
+        out[f"flash64_fit{who}_per_tile_ms"] = per_tile
+    # what a work tile costs on the persistent body: 36 CTAs (the grid
+    # fixed) walking 1 and 8 work tiles each of one 128-key K/V tile (not
+    # causal, 128 q rows over 128 keys)
+    fa_mod = sys.modules[flash_attention.__module__]
+    if getattr(fa_mod, "flash_body", lambda *_: "")(64, torch.bfloat16) \
+            == "persistent":
+        ctas, walk = fa_mod.flash_ctas, {}
+        try:
+            fa_mod.flash_ctas = lambda *_: 36
+            for B in (1, 8):
+                q, k, v = (rnd(B, 128, 36, 64).bfloat16() for _ in range(3))
+                walk[B] = time_ms(
+                    lambda: flash_attention(q, k, v, causal=False), flush)
+        finally:
+            fa_mod.flash_ctas = ctas
+        per_work = (walk[8] - walk[1]) / 7
+        out.update(flash64_walk_fixed_ms=walk[1] - per_work,
+                   flash64_walk_per_work_tile_ms=per_work)
+    decode_attention = dec_mod.decode_attention
+    for B, L in ((8, 544), (4, 544), (2, 544), (1, 544), (1, 4096),
+                 (1, 32768)):
+        key = f"decode64_B{B}_L{L}"
+        q = rnd(B, 36, 64).bfloat16()
+        k, v = rnd(B, L, 36, 64).bfloat16(), rnd(B, L, 36, 64).bfloat16()
+        vlen = torch.full((B,), L, dtype=torch.int32, device=q.device)
+        got = decode_attention(q, k, v, vlen).float()
+        want = dec_mod.decode_attention_plain(q, k, v, vlen).float()
+        d = got - want
+        out[f"{key}_err"] = d.abs().max().item()
+        out[f"{key}_row_err"] = (d.norm(dim=-1)
+                                 / want.norm(dim=-1)).max().item()
+        out[f"{key}_ms"] = time_ms(lambda: decode_attention(q, k, v, vlen),
+                                   flush)
+        out[f"{key}_sdpa_ms"] = time_ms(
+            lambda: F.scaled_dot_product_attention(
+                q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)), flush)
+        out[f"{key}_bound_ms"] = bound_ms(
+            4 * q.numel() + 2 * 2 * B * L * 36 * 64 + 4 * B,
+            4 * 64 * 36 * B * L)
+        if hasattr(dec_mod, "decode_plan"):
+            out[f"{key}_plan"] = list(dec_mod.decode_plan(
+                B, 36, 36, L, 64, torch.bfloat16,
+                torch.cuda.get_device_properties(0).multi_processor_count))
+    # the decode's one-CTA fit: 36 CTAs (batch 1, 36 heads), each one range
+    # of the cache, over 1 and 32 tiles of 32 keys
+    planners = (dec_mod.split_plan, getattr(dec_mod, "split_plan_tc", None))
+    fit = {}
+    try:
+        for L in (32, 1024):
+            dec_mod.split_plan = dec_mod.split_plan_tc = \
+                lambda *_, L=L: (1, L)
+            q = rnd(1, 36, 64).bfloat16()
+            k, v = rnd(1, L, 36, 64).bfloat16(), rnd(1, L, 36, 64).bfloat16()
+            vlen = torch.full((1,), L, dtype=torch.int32, device=q.device)
+            fit[L] = time_ms(lambda: decode_attention(q, k, v, vlen), flush)
+    finally:
+        dec_mod.split_plan = planners[0]
+        if planners[1] is None:
+            del dec_mod.split_plan_tc
+        else:
+            dec_mod.split_plan_tc = planners[1]
+    per_tile = (fit[1024] - fit[32]) / 31
+    out.update(decode64_fit_fixed_ms=fit[32] - per_tile,
+               decode64_fit_per_tile_ms=per_tile)
+    for src, text in ptxas.items():
+        regs, fn = {}, None
+        for ln in text.splitlines():
+            if "Function properties for" in ln:
+                fn = ln.split("Function properties for")[1].strip()
+            elif fn and ("Li64E" in fn or "Li32E" in fn) \
+                    and "f32" not in fn and "IfLi" not in fn \
+                    and ("Used " in ln or "spill" in ln):
+                regs.setdefault(fn, []).append(ln.strip())
+        out[f"{src}_ptxas"] = regs
+    return out
+
+
+def hd64_plans(dec_mod, rnd, flush):
+    """The decode at hd 64 (36 heads, G 1) on each body the checkout's C
+    launcher takes there (``decode_instance`` forced to ``cuda_cores`` and
+    to ``tensor_cores``; a body it refuses is skipped) and at other splits
+    of the cache than the wrapper's plan: every ``n_split`` of 1, 2, 3, 4,
+    6 and 8 (one cluster, whole 32-key tiles) at buckets 8 and 1 over 544
+    keys, and at batch 1 over 32768 keys those and 16, 32 and 64 (the
+    ticket combine) (``plan64_<body>_B*_L*_{n_split}x{chunk}``)."""
+    out = {}
+    saved = {n: getattr(dec_mod, n, None)
+             for n in ("split_plan", "split_plan_tc", "decode_instance")}
+    try:
+        for inst in ("cuda_cores", "tensor_cores"):
+            dec_mod.decode_instance = lambda *_, i=inst: i
+            for B, L in ((8, 544), (1, 544), (1, 32768)):
+                q = rnd(B, 36, 64).bfloat16()
+                k = rnd(B, L, 36, 64).bfloat16()
+                v = rnd(B, L, 36, 64).bfloat16()
+                vlen = torch.full((B,), L, dtype=torch.int32,
+                                  device=q.device)
+                for n in (1, 2, 3, 4, 6, 8, 16, 32, 64):
+                    if n > 8 and L == 544:
+                        continue
+                    chunk = -(-L // n)
+                    if n <= 8:
+                        chunk = -(-chunk // 32) * 32
+                    if -(-L // chunk) != n:
+                        continue
+                    dec_mod.split_plan = dec_mod.split_plan_tc = \
+                        lambda *_, p=(n, chunk): p
+                    key = f"plan64_{inst}_B{B}_L{L}_{n}x{chunk}"
+                    try:
+                        out[key] = time_ms(
+                            lambda: dec_mod.decode_attention(q, k, v, vlen),
+                            flush)
+                    except RuntimeError as e:
+                        out[key] = f"refused: {e}"[:120]
+                        break
+    finally:
+        for n, f in saved.items():
+            if f is None:
+                if hasattr(dec_mod, n):
+                    delattr(dec_mod, n)
+            else:
+                setattr(dec_mod, n, f)
+    return out
+
+
 def main(root: Path, tag: str, hd256: bool = False,
          hd128: bool = False, plans: bool = False, flash: bool = False,
-         sdpa: bool = False, clean: bool = False) -> int:
+         sdpa: bool = False, clean: bool = False, hd64: bool = False,
+         plans64: bool = False) -> int:
     if not torch.cuda.is_available():
         print("time_kernels: CUDA is not available", file=sys.stderr)
         return 1
@@ -383,6 +573,19 @@ def main(root: Path, tag: str, hd256: bool = False,
 
     if plans:
         out.update(hd128_plans(dec_mod, rnd, flush))
+        print(json.dumps(out), flush=True)
+        return 0
+    if plans64:
+        out.update(hd64_plans(dec_mod, rnd, flush))
+        print(json.dumps(out), flush=True)
+        return 0
+    if hd64:
+        from repro_torch.kernels import _build
+        _build.build(("decode_attention", "flash_attention"))
+        out.update(hd64_times(
+            flash_attention, flash_attention_plain, dec_mod, rnd, flush,
+            {src: _build.ptxas_log(src).read_text()
+             for src in ("decode_attention", "flash_attention")}))
         print(json.dumps(out), flush=True)
         return 0
     if flash:
@@ -462,7 +665,7 @@ def main(root: Path, tag: str, hd256: bool = False,
 
 if __name__ == "__main__":
     flags = ("--hd256", "--hd128", "--hd128-plans", "--flash", "--sdpa",
-             "--clean")
+             "--clean", "--hd64", "--hd64-plans")
     args = [a for a in sys.argv[1:] if a not in flags]
     if len(args) not in (1, 2):
         sys.exit(__doc__)
@@ -472,4 +675,6 @@ if __name__ == "__main__":
                   plans="--hd128-plans" in sys.argv[1:],
                   flash="--flash" in sys.argv[1:],
                   sdpa="--sdpa" in sys.argv[1:],
-                  clean="--clean" in sys.argv[1:]))
+                  clean="--clean" in sys.argv[1:],
+                  hd64="--hd64" in sys.argv[1:],
+                  plans64="--hd64-plans" in sys.argv[1:]))
