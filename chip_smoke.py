@@ -9,12 +9,12 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/csrc``, holds
 each against its plain PyTorch version on the card (at every head dim the
 zoo needs, 256 included), checks that the bf16 flash-attention and SSD
 kernels run on the tensor cores (HGMMA in their SASS) and the bf16
-decode's tensor-core body at hd 128 and 256 too (HMMA, no spill), times
-them at the main paths' shapes (every kernel at buckets 8 and 1, the
-attention kernels beside SDPA, gemma3-1b's hd 256 attention too, the
-grouped-query attention at hd 128 of minitron-8b, llama4-scout and
-mixtral-8x22b and phi-3's hd 96 join, the SSD scan at every split of its
-chunks), and then, for each of the two main paths (the dense decoder
+decode's tensor-core body at hd 64, 96, 128 and 256 too (HMMA, no
+spill), times them at the main paths' shapes (every kernel at buckets 8
+and 1, the attention kernels beside SDPA, gemma3-1b's hd 256 attention
+too, the grouped-query attention at hd 128 of minitron-8b, llama4-scout
+and mixtral-8x22b, phi-3's hd 96 join and decode, the SSD scan at every
+split of its chunks), and then, for each of the two main paths (the dense decoder
 minicpm-2b with the two attention kernels, the Mamba2 decoder mamba2-370m
 with the SSD scan): checks the model at full width (two layers) on the card
 against the same weights on the CPU, serves 16 full-width, full-depth
@@ -267,6 +267,29 @@ DEC_CASES = [
     (2, 333, 16, 2, 64, True),
     (2, 9000, 32, 8, 64, False),
 ]
+# phi-3's decode at hd 96 on the tensor cores (phi3-mini, phi-3-vision: 32
+# heads, G 1; G 4 and 8 too) at split_plan_tc's plans: the serving buckets
+# 8, 4, 2 and 1 over 544 keys with rows at 0, batch 1 over 4096 and 32768
+# keys (phase 4), L no multiple of 16.  Their inputs come from a generator
+# of their own, so that every case above draws what it drew before them
+DEC96_CASES = [
+    (8, 544, 32, 32, 96, True),
+    (4, 544, 32, 32, 96, False),
+    (2, 544, 32, 32, 96, True),
+    (1, 544, 32, 32, 96, False),
+    (1, 4096, 32, 32, 96, False),
+    (1, 32768, 32, 32, 96, False),
+    (3, 1001, 32, 8, 96, True),
+    (2, 333, 64, 8, 96, False),
+]
+# Phase 9: the models whose decode's cases are profiled after their serve
+# (phi-3 at hd 96, the last published instance moved to the tensor cores)
+TC_DECODE_PROFILED = ("phi3-mini-3.8b", "phi-3-vision-4.2b")
+# where a kernel's name is read from the profiler (profiled_kernel_names,
+# which tests/test_torch_cuda.py uses too): launches under one profile, and
+# profiles taken at most, since after CUDA graph capture in the process the
+# profiler at times recorded no device event over a whole profile
+PROFILED_LAUNCHES, PROFILE_ATTEMPTS = 5, 10
 # The MoE models at published width but cut depth: mixtral-8x22b holds
 # about 5.0 GB of bf16 a layer and llama4-scout about 4.2 GB, so 4 layers
 # each (about 21 GB with the embeddings) fit one 80 GB card beside the rest
@@ -953,6 +976,47 @@ def scheduler_phase(dev, chat_cfg, ssm_cfg, smi: str, prompt_len: int = 512,
     return out
 
 
+def profiled_kernel_names(call, match: str) -> list:
+    """The names holding ``match`` of the device kernels that the profiler
+    records over ``PROFILED_LAUNCHES`` calls of ``call``.  After CUDA graph
+    capture in the process the profiler at times records no device event
+    at all over a whole profile; such a profile is taken again, up to
+    ``PROFILE_ATTEMPTS`` times, and one that records any device event is
+    read as it is."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILED_LAUNCHES):
+                call()
+            torch.cuda.synchronize()
+        names = {e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA}
+        if names:
+            return sorted(n for n in names if match in n)
+    return []
+
+
+def decode_kernel_names(cases, dev) -> Dict[str, list]:
+    """The decode kernels the profiler names (``profiled_kernel_names``)
+    at each of ``cases`` (``kernel_shapes``' decode cases: (B, L, Hq, Hkv,
+    hd) and the dtype's name), every row at valid_len L."""
+    import torch
+    from repro_torch.kernels.decode_attention import decode_attention
+    out = {}
+    for (B, L, Hq, Hkv, hd), dn in sorted(cases):
+        dt = getattr(torch, dn)
+        q = torch.randn(B, Hq, hd, device=dev).to(dt)
+        k = torch.randn(B, L, Hkv, hd, device=dev).to(dt)
+        vlen = torch.full((B,), L, dtype=torch.int32, device=dev)
+        decode_attention(q, k, k, vlen)
+        out[str(((B, L, Hq, Hkv, hd), dn))] = profiled_kernel_names(
+            lambda: decode_attention(q, k, k, vlen), "dec_kernel")
+    return out
+
+
 def zoo_phase(dev, smi: str, zoo, *, parity_len: int = 130,
               prompt_len: int = 256, gen_len: int = 8, n_requests: int = 8,
               max_batch: int = 8, windowed_s: float = 2.0,
@@ -964,7 +1028,10 @@ def zoo_phase(dev, smi: str, zoo, *, parity_len: int = 130,
     ``serve()`` (continuous batching) or, for a model that continuous
     batching refuses (a frontend or an encoder, as in JAX),
     ``simulate(stack="archipelago")`` on windowed ``torch-batched``; each
-    kernel's launches are held to what the model's groups give."""
+    kernel's launches are held to what the model's groups give.  For each
+    model of ``TC_DECODE_PROFILED``, the decode's cases in the serve
+    (``kernel_shapes``) are launched again under the profiler, which must
+    name ``dec_kernel_tc`` alone (on the card)."""
     import torch
     from repro_torch.core import BatchedTorchBackend, ClusterConfig
     from repro_torch.kernels import ops as kops
@@ -989,6 +1056,9 @@ def zoo_phase(dev, smi: str, zoo, *, parity_len: int = 130,
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
         join, step = group_launches(cfg_s)
+        seen = restore = None
+        if name in TC_DECODE_PROFILED:
+            seen, restore = kernel_shapes(kops)
         kops.reset_launch_counts()
         if route == "continuous":
             rep = serve(cfg_s, n_requests=n_requests, rps=None,
@@ -1037,6 +1107,18 @@ def zoo_phase(dev, smi: str, zoo, *, parity_len: int = 130,
             res = {"result": r.detach_sim().to_dict()}
             release(be)
             del be
+        if restore is not None:
+            restore()
+            if on_card:
+                names = decode_kernel_names(seen["decode_attention"], dev)
+                log(f"[zoo] {name}: the decode's kernels by the profiler, "
+                    f"per case of the serve: {names}")
+                if not names or not all(
+                        ns and all("dec_kernel_tc" in n for n in ns)
+                        for ns in names.values()):
+                    raise AssertionError(f"{name}: the decode did not run "
+                                         f"dec_kernel_tc alone: {names}")
+                res["decode_kernels"] = names
         log(f"[zoo] {name}: launches {got} (per prefill {join}, per step "
             f"{step}); peak memory "
             + (f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB"
@@ -2008,7 +2090,9 @@ def main() -> int:
                         f"spills {spilled}, serialised {serial}")
         report["hgmma"][src] = hgmma
     # the bf16 decode's tensor-core body (dec_kernel_tc: mma.sync, HMMA in
-    # SASS) at hd 64 (G <= 8), 128 (2 <= G <= 8) and 256, with no spill
+    # SASS) at hd 64 and 96 (G <= 8), 128 (2 <= G <= 8) and 256, with no
+    # spill; at hd 96 within the 128 registers a thread that two CTAs an SM
+    # leave
     sass = subprocess.run(
         [cuobjdump, "-sass", str(_build.library_path("decode_attention"))],
         capture_output=True, text=True, check=True).stdout
@@ -2019,28 +2103,43 @@ def main() -> int:
         elif fn and "dec_kernel_tc" in fn and "HMMA" in ln:
             hmma[fn] = hmma.get(fn, 0) + 1
     report["hmma"] = {"decode_attention": hmma}
-    for hd in (64, 128, 256):
+    log_text = _build.ptxas_log("decode_attention").read_text()
+    report["decode_tc_registers"] = {}
+    for hd in (64, 96, 128, 256):
         inst = f"dec_kernel_tcILi{hd}E"
         n = sum(c for f, c in hmma.items() if inst in f)
         spilled = [f for f in report["spills"]["decode_attention"]
                    if inst in f]
+        regs, fn = [], None
+        for ln in log_text.splitlines():
+            if "Function properties for" in ln:
+                fn = ln.split("Function properties for")[1]
+            elif fn and inst in fn and "Used " in ln:
+                regs.append(int(ln.split("Used ")[1].split()[0]))
+                fn = None
+        report["decode_tc_registers"][hd] = regs
         log(f"[build] decode_attention bf16 hd {hd} (dec_kernel_tc): {n} "
-            f"HMMA instructions (cuobjdump -sass), {len(spilled)} with "
-            f"spills")
+            f"HMMA instructions (cuobjdump -sass), {regs} registers, "
+            f"{len(spilled)} with spills")
         if not n:
             raise AssertionError(f"the bf16 decode kernel at hd {hd} holds "
                                  f"no HMMA instruction")
         if spilled:
             raise AssertionError(f"the bf16 decode kernel at hd {hd} "
                                  f"spills: {spilled}")
+        if hd == 96 and not (regs and max(regs) <= 128):
+            raise AssertionError(f"the bf16 decode kernel at hd 96 takes "
+                                 f"{regs} registers, past the 128 of two "
+                                 f"CTAs an SM")
 
     # -- 3. kernel vs plain on the card ----------------------------------------
     F = torch.nn.functional
-    gen = torch.Generator(device=dev)
+    gen, gen96 = torch.Generator(device=dev), torch.Generator(device=dev)
     gen.manual_seed(0)
+    gen96.manual_seed(96)
 
-    def rnd(*shape, dtype):
-        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+    def rnd(*shape, dtype, g=gen):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
 
     def check(tag, out, ref, dtype_name, tol=None, rows=False):
         torch.cuda.synchronize()
@@ -2073,12 +2172,13 @@ def main() -> int:
                 f"flash_attention {c}",
                 flash_attention(q, k, v, causal=causal, window=w),
                 flash_attention_plain(q, k, v, causal=causal, window=w), dn)
-        for c in DEC_CASES:
+        for c, g in [(c, gen) for c in DEC_CASES] + [(c, gen96)
+                                                     for c in DEC96_CASES]:
             B, L, Hq, Hkv, hd, zero_row = c
-            q, k, v = (rnd(B, Hq, hd, dtype=dtype),
-                       rnd(B, L, Hkv, hd, dtype=dtype),
-                       rnd(B, L, Hkv, hd, dtype=dtype))
-            vlen = torch.randint(1, L + 1, (B,), generator=gen, device=dev,
+            q, k, v = (rnd(B, Hq, hd, dtype=dtype, g=g),
+                       rnd(B, L, Hkv, hd, dtype=dtype, g=g),
+                       rnd(B, L, Hkv, hd, dtype=dtype, g=g))
+            vlen = torch.randint(1, L + 1, (B,), generator=g, device=dev,
                                  dtype=torch.int32)
             if zero_row:
                 vlen[0] = 0
@@ -2337,23 +2437,56 @@ def main() -> int:
             **{f"bucket{b}": time_dec(b, plain=False) for b in (4, 2)},
             **{f"B1_L{L}": time_dec(1, plain=False, L=L)
                for L in (4096, 32768)}}}
-    # What one decode CTA pays: batch 1, 36 heads, one range each (the plan
-    # fixed), over 1 and 32 tiles of 32 keys
+    # phi-3's decode at hd 96 (phi3-mini, phi-3-vision: 32 heads, G 1, the
+    # tensor cores) at buckets 8, 4, 2 and 1 over 544 keys and at batch 1
+    # over 4096 and 32768 keys
     dec_mod = sys.modules["repro_torch.kernels.decode_attention"]
-    planners, fit = (dec_mod.split_plan, dec_mod.split_plan_tc), {}
+    hd96 = with_bucket1(*(time_dec(b, H=32, hd=96) for b in (8, 1)))
+    for b in (4, 2):
+        u = time_dec(b, plain=False, H=32, hd=96)
+        hd96.update({f"ms_bucket{b}": u["ms"],
+                     f"library_ms_bucket{b}": u["library_ms"],
+                     f"bound_ms_bucket{b}": u["bound_ms"]})
+    hd96["long_context"] = {L: time_dec(1, plain=False, L=L, H=32, hd=96)
+                            for L in (4096, 32768)}
+    hd96["plans"] = {f"B{b}_L{L}": list(dec_mod.decode_plan(
+        b, 32, 32, L, 96, bf, n_sms)) for b, L in (
+            (8, 544), (4, 544), (2, 544), (1, 544), (1, 4096), (1, 32768))}
+    log("[timing] decode_attention phi-3 hd 96, 32 heads, G 1: "
+        + ", ".join(f"B{b}: kernel {hd96[m]:.4f} ms, library "
+                    f"{hd96[lm]:.4f} ms, bound {hd96[bm] * 1e3:.2f} us"
+                    for b, m, lm, bm in (
+                        (8, "ms", "library_ms", "bound_ms"),
+                        *((b, f"ms_bucket{b}", f"library_ms_bucket{b}",
+                           f"bound_ms_bucket{b}") for b in (4, 2, 1))))
+        + f" (plain B8 {hd96['plain_ms']:.4f}, B1 "
+        f"{hd96['plain_ms_bucket1']:.4f} ms); "
+        + ", ".join(f"B1 L {L}: kernel {u['ms']:.4f} ms, library "
+                    f"{u['library_ms']:.4f} ms, bound "
+                    f"{u['bound_ms'] * 1e3:.2f} us"
+                    for L, u in hd96["long_context"].items())
+        + f"; plans {hd96['plans']}; {smi}")
+    # What one decode CTA pays: batch 1, 36 heads of hd 64 or 32 of hd 96,
+    # one range each (the plan fixed), over 1 and 32 tiles of 32 keys
+    planners = ("split_plan", "split_plan_tc")
+    saved, fit = {n: getattr(dec_mod, n) for n in planners}, {}
     try:
-        for L in (32, 1024):
-            dec_mod.split_plan = dec_mod.split_plan_tc = \
-                lambda *_, L=L: (1, L)
-            fit[L] = time_dec(1, plain=False, L=L)["ms"]
+        for hd, H in ((64, 36), (96, 32)):
+            for L in (32, 1024):
+                for n in planners:
+                    setattr(dec_mod, n, lambda *_, L=L: (1, L))
+                fit[hd, L] = time_dec(1, plain=False, L=L, H=H, hd=hd)["ms"]
     finally:
-        dec_mod.split_plan, dec_mod.split_plan_tc = planners
-    per_tile = (fit[1024] - fit[32]) / 31
-    report["decode_cta_fit"] = {64: {"fixed_ms": fit[32] - per_tile,
-                                     "per_tile_ms": per_tile}}
-    log(f"[timing] decode_attention hd 64, 36 CTAs: fixed "
-        f"{fit[32] - per_tile:.4f} ms + {per_tile:.5f} ms per 32-key tile; "
-        f"{smi}")
+        for n, f in saved.items():
+            setattr(dec_mod, n, f)
+    report["decode_cta_fit"] = {}
+    for hd, H in ((64, 36), (96, 32)):
+        per_tile = (fit[hd, 1024] - fit[hd, 32]) / 31
+        report["decode_cta_fit"][hd] = {"fixed_ms": fit[hd, 32] - per_tile,
+                                        "per_tile_ms": per_tile}
+        log(f"[timing] decode_attention hd {hd}, {H} CTAs: fixed "
+            f"{fit[hd, 32] - per_tile:.4f} ms + {per_tile:.5f} ms per 32-key "
+            f"tile; {smi}")
     for kname, rows in hd64.items():
         log(f"[timing] {kname} hd 64: "
             + ", ".join(f"{c}: kernel {t['ms']:.4f} ms, library "
@@ -2683,9 +2816,10 @@ def main() -> int:
              "src/repro/kernels/decode_attention.py:69", 25,
              "split over the cache, one cluster per (b, KV head), "
              "combine through distributed shared memory; bf16 hd 256, hd "
-             "128 with 2 <= G <= 8 and hd 64 with G <= 8: mma.sync, each "
-             "warp on its own TMA-loaded 16-key blocks (hd 64: three CTAs "
-             "an SM); the rest: a cp.async ring on the CUDA cores; plans "
+             "128 with 2 <= G <= 8 and hd 64 and 96 with G <= 8: "
+             "mma.sync, each warp on its own TMA-loaded 16-key blocks (hd "
+             "64: three CTAs an SM; hd 96: two, on 32-column panels); the "
+             "rest: a cp.async ring on the CUDA cores; plans "
              "past 8 splits: combined by tickets in groups, one CTA per "
              "SM at long context"),
             ("ssd_scan", ssd, "ssd", "mamba2-370m",
@@ -2737,6 +2871,16 @@ def main() -> int:
                 hd64[kname], cta_fit=report[
                     "flash_cta_fit" if kname == "flash_attention"
                     else "decode_cta_fit"][64])
+        if kname == "decode_attention":
+            # phi-3's decode at hd 96 (phase 4), its launches over phase 9's
+            # serve of phi3-mini and phi-3-vision, and its one-CTA fit
+            kernels[-1]["hd96"] = dict(
+                hd96, cta_fit=report["decode_cta_fit"][96],
+                launches={arch: report["zoo"][arch]["launches"][op]
+                          for arch in ("phi3-mini-3.8b",
+                                       "phi-3-vision-4.2b")},
+                max_abs_err=errs[kname][((8, 544, 32, 32, 96, True),
+                                         "bfloat16")])
         if kname in hd256:
             # gemma3-1b at hd 256: launches over its phase-9 serve()
             case256 = ((8, 512, 512, 4, 1, 256, True, 0)

@@ -16,20 +16,24 @@
 // 2*8*544*36*64*2 B = 40 MB at 3.35 TB/s, about 12 us; gemma3-1b's global
 // layer at batch 1 and a 128k cache reads 2*131072*256*2 B = 134 MB, 40 us;
 // a step at hd 128 over 8 KV heads (minitron-8b), batch 8 over 544 keys,
-// 2*8*544*8*128*2 B = 17.8 MB, 5.4 us.  Which body runs is the wrapper's
-// decode_instance:
+// 2*8*544*8*128*2 B = 17.8 MB, 5.4 us; phi-3's (hd 96, 32 heads) at
+// batch 8, 2*8*544*32*96*2 B = 53.5 MB, 16 us.  Which body runs is the
+// wrapper's decode_instance:
 //   - dec_kernel, on the CUDA cores: float32 (its tolerance needs full-f32
-//     products), and bf16 at hd 32, 72 and 96, at hd 128 with G = 1 and
-//     at hd 64 past G = 8.
+//     products), and bf16 where no published config decodes: hd 32 and 72,
+//     hd 128 with G = 1, hd 64 and 96 past G = 8.
 //   - dec_kernel_tc, on the tensor cores: bf16 at hd 256 (gemma3-1b), at
 //     hd 128 with 2 <= G <= 8 (minitron-8b, llama4-scout; mixtral-8x22b's
 //     layers all slide a window and decode through plain attention) and at
-//     hd 64 with G <= 8 (minicpm-2b's G 1, zamba2-1.2b, whisper-tiny).
-//     There dec_kernel paid a 5-step shuffle reduction for every score of
-//     every query head and could not score as fast as it loaded: at hd 128,
-//     G 4 to 6, batch 8 over 544 keys it took 0.038-0.075 ms, 1.75-3.4x
-//     SDPA, where dec_kernel_tc takes 0.019-0.020; at hd 64, G 1, batch 1
-//     over 32768 keys 0.139 ms against 0.115-0.119 (PERF.md, section 6).
+//     hd 64 and 96 with G <= 8 (minicpm-2b's G 1, zamba2-1.2b,
+//     whisper-tiny; phi3-mini's and phi-3-vision's G 1): every published
+//     bf16 config.  There dec_kernel paid a 5-step shuffle reduction for
+//     every score of every query head and could not score as fast as it
+//     loaded: at hd 128, G 4 to 6, batch 8 over 544 keys it took
+//     0.038-0.075 ms, 1.75-3.4x SDPA, where dec_kernel_tc takes
+//     0.019-0.020; at hd 64, G 1, batch 1 over 32768 keys 0.139 ms against
+//     0.115-0.119; at hd 96, G 1, batch 8 over 544 keys 0.041 ms against
+//     0.032 (PERF.md, section 6).
 // The design is about bytes in flight:
 //
 // * Split over the cache.  The wrapper's plan (kernels/decode_attention.py,
@@ -41,7 +45,9 @@
 //   The tensor-core body at hd 64 and 128 takes split_plan_tc instead: at
 //   most one CTA per SM (but one range where B * Hkv alone passes the SMs)
 //   and one cluster, ranges of about 256 keys or more, whose warps stream
-//   two stages each.  A range at or past valid_len reads nothing.
+//   two stages each; at hd 96 at most one CTA per two
+//   SMs and ranges of about 1024 keys or more.  A range at or past
+//   valid_len reads nothing.
 // * Combine in the same launch, by one of two means (split_groups), or,
 //   for a plan of one range, not at all: the CTA's 8 warps' partials go
 //   straight into o, launched without a cluster (at hd 64, batch 8, that
@@ -80,11 +86,11 @@
 //     (two elements each), a shuffle reduction gives each key's score, and
 //     all G query rows share the K/V row.
 //   - dec_kernel_tc ("tensor_cores": bf16 at hd 256, at hd 128 with 2 <=
-//     G <= 8, at hd 64 with G <= 8): each warp on its own 16-key blocks
-//     loaded by TMA; see the comment above it.  On the CUDA cores the G =
-//     4 heads of hd 256 cost about 600 instructions a warp per 4 keys (4
-//     KB of K and V), the G = 6 heads of hd 128 about 640 per 2 KB, and
-//     even G = 1 at hd 64 five shuffles for every score.
+//     G <= 8, at hd 64 and 96 with G <= 8): each warp on its own 16-key
+//     blocks loaded by TMA; see the comment above it.  On the CUDA cores
+//     the G = 4 heads of hd 256 cost about 600 instructions a warp per 4
+//     keys (4 KB of K and V), the G = 6 heads of hd 128 about 640 per 2
+//     KB, and even G = 1 at hd 64 and 96 five shuffles for every score.
 //   The 8 warps' partials are combined in shared memory first.
 #include <cmath>
 #include <cooperative_groups.h>
@@ -537,15 +543,16 @@ __global__ void __launch_bounds__(NT)
                             group, tid);
 }
 
-// -- bf16 on the tensor cores: hd 256, hd 128 with 2 <= G <= 8, hd 64 with
-// G <= 8 ----------------------------------------------------------------------
+// -- bf16 on the tensor cores: hd 256, hd 128 with 2 <= G <= 8, hd 64 and 96
+// with G <= 8 ----------------------------------------------------------------
 // Each warp streams its own 16-key blocks of the CTA's range (blocks w, w +
-// 8, ...) through its own stages: one TMA box of 16 rows x 64 columns a
-// panel, HD / 64 panels of K and as many of V (4 KB a stage at hd 64, 8 KB
-// at hd 128, 16 KB at hd 256), 128-byte swizzle, one mbarrier a stage.  A
-// warp has two stages at hd 64 and 128, so that one block loads while the
+// 8, ...) through its own stages: one TMA box of 16 rows a panel, panels of
+// 64 columns under the 128-byte swizzle (HD / 64 of K and as many of V: 4
+// KB a stage at hd 64, 8 KB at hd 128, 16 KB at hd 256) or, at hd 96, three
+// of 32 columns under the 64-byte swizzle (6 KB), one mbarrier a stage.  A
+// warp has two stages at hd 64 to 128, so that one block loads while the
 // other is scored, and one at hd 256, where two would not fit.  At G = 1
-// (minicpm-2b) seven of the 8 head columns of each mma are zeros: they
+// (minicpm-2b, phi-3) seven of the 8 head columns of each mma are zeros: they
 // cost tensor-core issue slots, not bytes, in a kernel bound by its bytes,
 // and the score of a key is one mma fragment, not a shuffle reduction.
 // S^T = K q^T is mma.sync m16n8k16 with the 16 keys as rows (ldmatrix from
@@ -558,17 +565,24 @@ __global__ void __launch_bounds__(NT)
 // block's keys past the range score -1e30; the box's rows there are real
 // keys or TMA's zeros, never stale, so P = 0 meets finite values.  No CTA
 // barrier until the end; then the warps' partials, combined over a cluster
-// (up to 8 ranges at hd 128) or by tickets (hd 256, and past 8 ranges), as
-// the wrapper's group says.
+// (up to 8 ranges at hd 64 to 128) or by tickets (hd 256, and past 8
+// ranges), as the wrapper's group says.
 constexpr int TC_KB = 16;                     // keys per block
-constexpr int TC_PANEL = TC_KB * 128;         // 16 rows x 64 columns
 
 template <int HD>
 struct TcCfg {
   // head capacity: G * HD <= 1024, and the mma's 8 columns
   static constexpr int GC = 1024 / HD < 8 ? 1024 / HD : 8;
-  static constexpr int PANELS = HD / 64;
-  static constexpr int STAGE = 2 * PANELS * TC_PANEL;   // K and V of a block
+  // a panel's columns: 64 (128-byte rows, 128-byte swizzle), or 32 (64-byte
+  // rows, 64-byte swizzle) where 64 does not divide HD, so that hd 96 loads
+  // no padding: three panels, 6 KB a stage, where two of 64 columns would
+  // take 8 KB and allow one CTA an SM in place of two
+  static constexpr int PCOLS = HD % 64 ? 32 : 64;
+  static constexpr int ROWB = 2 * PCOLS;                // bytes a panel row
+  static constexpr int PANEL = TC_KB * ROWB;            // 16 rows
+  static constexpr int PANELS = (HD + PCOLS - 1) / PCOLS;
+  static constexpr int SPP = PCOLS / 16;                // k-steps a panel
+  static constexpr int STAGE = 2 * PANELS * PANEL;      // K and V of a block
   static constexpr int STAGES = HD <= 128 ? 2 : 1;      // a warp's
   static constexpr int WS = 2 * GC + GC * HD; // a warp's partial (floats)
   // the warps' partials and the CTA's (cluster combine) fit one stage a warp
@@ -584,11 +598,22 @@ struct TcCfg {
   static constexpr int SMEM = 1024 + RING_OFF + NW * STAGES * STAGE;
 };
 
+// The byte offset of 16-byte chunk c of row r in a TMA-swizzled panel of
+// ROWB-byte rows at a 1024-byte boundary: the 128-byte swizzle XORs the
+// chunk with r mod 8, the 64-byte one with (r / 2) mod 4.  Either way the 8
+// rows that one ldmatrix phase reads at one chunk fall in 8 distinct 16-byte
+// groups of banks: no bank conflict.
+template <int ROWB>
+__device__ __forceinline__ uint32_t swizzled(int r, int c) {
+  return r * ROWB + ((c ^ (ROWB == 128 ? r & 7 : (r >> 1) & 3)) << 4);
+}
+
 // Three CTAs an SM at hd 64 (80 registers a thread and 67 KB of shared
 // memory each), so that batch 8 of minicpm-2b's 36 heads, 288 CTAs of one
-// range, runs in one wave; one at hd 128 and 256.
+// range, runs in one wave; two at hd 96 (100 KB each), so that phi-3's
+// 256 CTAs at batch 8 do too; one at hd 128 and 256.
 template <int HD>
-__global__ void __launch_bounds__(NT, HD == 64 ? 3 : 1)
+__global__ void __launch_bounds__(NT, HD == 64 ? 3 : HD == 96 ? 2 : 1)
     dec_kernel_tc(const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv,
                   const __nv_bfloat16* __restrict__ q,
@@ -598,7 +623,7 @@ __global__ void __launch_bounds__(NT, HD == 64 ? 3 : 1)
                   float scale_log2) {
   using C = TcCfg<HD>;
   constexpr int GC = C::GC, PANELS = C::PANELS, KS = HD / 16;
-  constexpr int ST = C::STAGES;
+  constexpr int ST = C::STAGES, PANEL = C::PANEL, SPP = C::SPP;
   extern __shared__ __align__(16) uint8_t smem[];
   const uint32_t raw = hp::smem_u32(smem);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -631,14 +656,14 @@ __global__ void __launch_bounds__(NT, HD == 64 ? 3 : 1)
   auto issue = [&](int u) {
     const int k0 = k_begin + (warp + NW * u) * TC_KB;
     const uint32_t sK = ring + (u % ST) * C::STAGE;
-    const uint32_t sV = sK + PANELS * TC_PANEL;
+    const uint32_t sV = sK + PANELS * PANEL;
     const uint32_t bar = bar0 + 8 * (u % ST);
     const bool on = lane == 0;
     hp::mbar_expect_tx(bar, C::STAGE, on);
 #pragma unroll
     for (int p = 0; p < PANELS; ++p) {
-      hp::tma_load4(sK + p * TC_PANEL, &tk, 64 * p, hk, k0, b, bar, on);
-      hp::tma_load4(sV + p * TC_PANEL, &tv, 64 * p, hk, k0, b, bar, on);
+      hp::tma_load4(sK + p * PANEL, &tk, C::PCOLS * p, hk, k0, b, bar, on);
+      hp::tma_load4(sV + p * PANEL, &tv, C::PCOLS * p, hk, k0, b, bar, on);
     }
   };
 #pragma unroll
@@ -667,15 +692,17 @@ __global__ void __launch_bounds__(NT, HD == 64 ? 3 : 1)
     hp::mbar_wait(bar0 + 8 * (u % ST), (u / ST) & 1);
     const int k0 = k_begin + (warp + NW * u) * TC_KB;
     const uint32_t sK = ring + (u % ST) * C::STAGE;
-    const uint32_t sV = sK + PANELS * TC_PANEL;
-    // S^T (16 keys x 8 heads): A = K (keys x dims) from the panels
+    const uint32_t sV = sK + PANELS * PANEL;
+    // S^T (16 keys x 8 heads): A = K (keys x dims) from the panels, k-step
+    // st in panel st / SPP
     float s[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
     for (int st = 0; st < KS; ++st) {
-      const int row = rr + 8 * (mi & 1), chunk16 = 2 * (st & 3) + (mi >> 1);
+      const int row = rr + 8 * (mi & 1);
+      const int chunk16 = 2 * (st % SPP) + (mi >> 1);
       uint32_t a[4];
-      hp::ldsm_x4(a, sK + (st >> 2) * TC_PANEL + row * 128 +
-                         ((chunk16 ^ (row & 7)) << 4));
+      hp::ldsm_x4(a, sK + (st / SPP) * PANEL +
+                         swizzled<C::ROWB>(row, chunk16));
       hp::mma_bf16(s, a, qf[st][0], qf[st][1]);
     }
     // s[0], s[1]: key g, heads 2t4, +1; s[2], s[3]: key g + 8
@@ -716,10 +743,11 @@ __global__ void __launch_bounds__(NT, HD == 64 ? 3 : 1)
       acc[mb][1] *= alpha[1];
       acc[mb][2] *= alpha[0];
       acc[mb][3] *= alpha[1];
-      const int key = rr + 8 * (mi >> 1), chunk16 = 2 * (mb & 3) + (mi & 1);
+      const int key = rr + 8 * (mi >> 1);
+      const int chunk16 = 2 * (mb % SPP) + (mi & 1);
       uint32_t a[4];
-      hp::ldsm_x4_trans(a, sV + (mb >> 2) * TC_PANEL + key * 128 +
-                               ((chunk16 ^ (key & 7)) << 4));
+      hp::ldsm_x4_trans(a, sV + (mb / SPP) * PANEL +
+                               swizzled<C::ROWB>(key, chunk16));
       hp::mma_bf16(acc[mb], a, pb0, pb1);
     }
     __syncwarp();                      // every lane has read the stage
@@ -882,8 +910,8 @@ int launch_tc(const void* q, const void* k, const void* v, const int* vlen,
     if (err != cudaSuccess) return (int)err;
   }
   CUtensorMap tk, tv;
-  if (!hp::make_map_bshd(&tk, k, HD, Hkv, L, B, TC_KB) ||
-      !hp::make_map_bshd(&tv, v, HD, Hkv, L, B, TC_KB))
+  if (!hp::make_map_bshd(&tk, k, HD, Hkv, L, B, TC_KB, C::PCOLS) ||
+      !hp::make_map_bshd(&tv, v, HD, Hkv, L, B, TC_KB, C::PCOLS))
     return -2;
   const int bytes = C::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
@@ -918,13 +946,13 @@ int launch_tc(const void* q, const void* k, const void* v, const int* vlen,
 // C interface for ctypes.  Returns 0 on success, the cudaError_t of a
 // refused launch, -1 for an instance, head dim, group or plan the kernel
 // was not built for, or -2 if a TMA tensor map could not be made.  n_split
-// CTAs of `chunk` keys each per (b, KV head): the wrapper's split_plan;
+// CTAs of `chunk` keys each per (b, KV head): the wrapper's decode_plan;
 // group: 0 to combine over one cluster of the n_split CTAs (n_split <= 8),
 // else the ticket combine's ranges per group (split_groups),
 // with `scratch` its float32 partials and then its B * Hkv * (groups + 1)
 // tickets (zeroed here, on `stream`); tensor_cores: the body, which the
 // wrapper's decode_instance alone chooses, 1 for dec_kernel_tc (bf16 at hd
-// 64, 128 and 256 only), 0 for dec_kernel (every dtype and head dim).
+// 64, 96, 128 and 256 only), 0 for dec_kernel (every dtype and head dim).
 extern "C" int repro_decode_attention(const void* q, const void* k,
                                       const void* v, const void* valid_len,
                                       void* o, void* scratch, int is_bf16,
@@ -939,6 +967,9 @@ extern "C" int repro_decode_attention(const void* q, const void* k,
     if (!is_bf16) return -1;
     if (hd == 64)
       return launch_tc<64>(q, k, v, vlen, o, part, B, L, Hq, Hkv, n_split,
+                           chunk, group, s);
+    if (hd == 96)
+      return launch_tc<96>(q, k, v, vlen, o, part, B, L, Hq, Hkv, n_split,
                            chunk, group, s);
     if (hd == 128)
       return launch_tc<128>(q, k, v, vlen, o, part, B, L, Hq, Hkv, n_split,

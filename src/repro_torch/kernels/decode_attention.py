@@ -8,9 +8,10 @@ tensors go to :func:`decode_attention_plain`, CUDA tensors launch the
 kernel or raise.  The kernel has two bodies, and :func:`decode_instance`
 names the one a launch runs: the tensor cores for bf16 at hd 256, at hd
 128 with 2 to 8 query heads a KV head (minitron-8b, llama4-scout) and at
-hd 64 with up to 8 (minicpm-2b, zamba2-1.2b, whisper-tiny), split by
-:func:`split_plan_tc` at hd 64 and 128; the CUDA cores for the rest,
-split by :func:`split_plan`.
+hd 64 and 96 with up to 8 (minicpm-2b, zamba2-1.2b, whisper-tiny; phi-3),
+split by :func:`split_plan_tc`; the CUDA cores for the rest, split by
+:func:`split_plan`: float32, and bf16 at shapes no published config
+decodes at.
 ``decode_attention.launches`` counts kernel launches.
 
 A row with ``valid_len = 0`` attends to nothing and comes out as zeros, as
@@ -43,22 +44,25 @@ MIN_CHUNK = 4 * SPLIT_TILE  # keys per CTA at least, past one cluster
 MAX_GROUP = 32              # partials one ticket combine reads (the kernel's)
 TICKET_HEAD_DIMS = (256,)   # instances that combine by tickets at any plan
 TC_MIN_CHUNK = 256          # keys per CTA at least on the hd 128 tensor cores
+TC96_MIN_CHUNK = 1024       # keys per CTA at least on the hd 96 tensor cores
 # bf16 head dims on the tensor cores, with the query heads a KV head there
-TENSOR_CORE_GROUPS = {64: range(1, 9), 128: range(2, 9), 256: range(1, 5)}
+TENSOR_CORE_GROUPS = {64: range(1, 9), 96: range(1, 9), 128: range(2, 9),
+                      256: range(1, 5)}
 
 
 def decode_instance(hd: int, G: int, dtype: torch.dtype) -> str:
     """Which of the kernel's two bodies a launch at head dim ``hd`` with
     ``G`` query heads a KV head runs: ``"tensor_cores"`` (``dec_kernel_tc``,
     ``mma.sync`` on TMA-loaded 16-key blocks) for bf16 at hd 256, at hd 128
-    with 2 <= G <= 8 and at hd 64 with G <= 8, where the CUDA cores'
-    per-score shuffle reductions cost more than the loads (at hd 64 even G
-    = 1, whose mma leaves 7 of its 8 head columns empty: that costs issue
-    slots, not bytes); else ``"cuda_cores"`` (``dec_kernel``): float32,
-    whose tolerance needs full-f32 products, hd 128 at G = 1, and the head
-    dims no published config decodes at.  The wrapper passes the choice to
-    the C launcher, which launches that body or refuses: this function
-    alone decides."""
+    with 2 <= G <= 8 and at hd 64 and 96 with G <= 8, where the CUDA cores'
+    per-score shuffle reductions cost more than the loads (at hd 64 and 96
+    even G = 1, whose mma leaves 7 of its 8 head columns empty: that costs
+    issue slots, not bytes); else ``"cuda_cores"`` (``dec_kernel``):
+    float32, whose tolerance needs full-f32 products, and bf16 where no
+    published config decodes: hd 32 and 72, hd 128 at G = 1, hd 64 and 96
+    past G = 8.  Every published bf16 config decodes on the tensor cores.
+    The wrapper passes the choice to the C launcher, which launches that
+    body or refuses: this function alone decides."""
     if dtype == torch.bfloat16 and G in TENSOR_CORE_GROUPS.get(hd, ()):
         return "tensor_cores"
     return "cuda_cores"
@@ -93,8 +97,9 @@ def split_plan(B: int, Hkv: int, L: int, sm_count: int) -> Tuple[int, int]:
     return max(1, -(-L // chunk)), chunk
 
 
-def split_plan_tc(B: int, Hkv: int, L: int, sm_count: int) -> Tuple[int, int]:
-    """The plan of the tensor-core body at hd 64 and 128
+def split_plan_tc(B: int, Hkv: int, L: int, sm_count: int,
+                  hd: int = 128) -> Tuple[int, int]:
+    """The plan of the tensor-core body at hd 64, 96 and 128
     (:func:`decode_instance`):
     ``(n_split, chunk)`` as :func:`split_plan` gives them, ranges of whole
     32-key tiles, but at most one CTA per SM over ``B * Hkv * n_split``, at
@@ -110,10 +115,19 @@ def split_plan_tc(B: int, Hkv: int, L: int, sm_count: int) -> Tuple[int, int]:
     (``tools/time_kernels.py --hd128-plans``; PERF.md, section 6).  At hd
     64, G 1, 36 heads the same rule gives 1 range at batch 8 over 544 keys
     (288 CTAs, three an SM) and 3 at batch 1, the fastest of the 1 to 8
-    that ``--hd64-plans`` timed there."""
+    that ``--hd64-plans`` timed there.  At hd 96, where two CTAs fit an
+    SM, at most one CTA per two SMs and no more ranges than ``ceil(L /
+    TC96_MIN_CHUNK)``: at phi-3's 32 heads fewer, longer ranges were
+    faster at every shape ``--hd96-plans`` timed, one range at buckets 8
+    to 1 over 544 keys (0.0141 ms at bucket 2 and 0.0116 at batch 1
+    against 0.0162 and 0.0129 in 2 and 3 ranges), two at batch 1 over
+    4096 keys (0.0326 against 0.0342 in 4) and over 32768 (0.1509 against
+    0.1721 in 4)."""
     tiles = max(1, -(-L // SPLIT_TILE))
-    n = max(1, min(MAX_SPLIT, sm_count // max(1, B * Hkv),
-                   -(-L // TC_MIN_CHUNK), tiles))
+    sms, min_chunk = ((sm_count // 2, TC96_MIN_CHUNK) if hd == 96
+                      else (sm_count, TC_MIN_CHUNK))
+    n = max(1, min(MAX_SPLIT, sms // max(1, B * Hkv), -(-L // min_chunk),
+                   tiles))
     chunk = -(-tiles // n) * SPLIT_TILE
     return max(1, -(-L // chunk)), chunk
 
@@ -141,12 +155,13 @@ def decode_plan(B: int, Hq: int, Hkv: int, L: int, hd: int,
                                                              int]:
     """The launch a decode at these shapes makes: ``(instance, n_split,
     chunk, group)``, the body (:func:`decode_instance`), its plan
-    (:func:`split_plan_tc` for the tensor-core body at hd 64 and 128, else
+    (:func:`split_plan_tc` for the tensor-core body at hd 64 to 128, else
     :func:`split_plan`) and the combine (:func:`split_groups`)."""
     instance = decode_instance(hd, Hq // Hkv, dtype)
-    plan = (split_plan_tc if instance == "tensor_cores" and hd != 256
-            else split_plan)
-    n_split, chunk = plan(B, Hkv, L, sm_count)
+    if instance == "tensor_cores" and hd != 256:
+        n_split, chunk = split_plan_tc(B, Hkv, L, sm_count, hd)
+    else:
+        n_split, chunk = split_plan(B, Hkv, L, sm_count)
     return instance, n_split, chunk, split_groups(n_split, hd)
 
 

@@ -19,9 +19,9 @@ from repro.kernels.decode_attention import \
     decode_attention as j_decode_pallas  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    MAX_CTAS, MAX_GROUP, MAX_SPLIT, MIN_CHUNK, SPLIT_TILE, TC_MIN_CHUNK,
-    decode_attention_plain, decode_instance, decode_plan, split_groups,
-    split_plan, split_plan_tc)
+    MAX_CTAS, MAX_GROUP, MAX_SPLIT, MIN_CHUNK, SPLIT_TILE, TC96_MIN_CHUNK,
+    TC_MIN_CHUNK, decode_attention_plain, decode_instance, decode_plan,
+    split_groups, split_plan, split_plan_tc)
 from repro_torch.kernels.flash_attention import flash_block_q  # noqa: E402
 
 TOL = dict(rtol=3e-5, atol=3e-5)    # f32, as tests/test_kernels.py
@@ -161,21 +161,44 @@ def test_split_plan_at_the_hd128_grouped_shapes(case):
     assert (n_split, chunk, split_groups(n_split, 128)) == want
 
 
+@pytest.mark.parametrize("plan", PLANS, ids=str)
+def test_split_plan_tc_covers_the_cache_at_hd96(plan):
+    """The hd 96 tensor-core plan: at most one cluster of whole tiles, at
+    most one CTA per two SMs (but one range where B * Hkv alone passes
+    that), and each of several ranges more than TC96_MIN_CHUNK / 2 keys."""
+    B, Hkv, L, sms = plan
+    n_split, chunk = split_plan_tc(B, Hkv, L, sms, 96)
+    assert split_plan_tc(B, Hkv, L, sms, 96) == (n_split, chunk)
+    assert 1 <= n_split <= MAX_SPLIT and split_groups(n_split, 96) == 0
+    assert chunk >= SPLIT_TILE and chunk % SPLIT_TILE == 0
+    assert B * Hkv * n_split <= max(sms // 2, B * Hkv)
+    if n_split > 1:
+        assert chunk > TC96_MIN_CHUNK // 2
+    rng = _ranges(L, n_split, chunk)
+    assert rng[0][0] == 0 and rng[-1][1] == max(L, 0)
+    for (a, b), (c, _) in zip(rng, rng[1:]):
+        assert b == c
+    if L > 0:
+        assert all(b > a for a, b in rng)
+
+
 @pytest.mark.parametrize("case", [
     # (hd, G, dtype, instance): bf16 on the tensor cores at hd 256, at hd
-    # 128 with 2 <= G <= 8 and at hd 64 with G <= 8; hd 128 at G 1, hd 64
-    # past 8 heads a KV head, float32 and hd 32, 72 and 96 on the CUDA
-    # cores
+    # 128 with 2 <= G <= 8 and at hd 64 and 96 (phi-3) with G <= 8; hd 128
+    # at G 1, hd 64 and 96 past 8 heads a KV head, float32 and hd 32 and 72
+    # on the CUDA cores
     *[(128, G, torch.bfloat16, "tensor_cores") for G in range(2, 9)],
     *[(256, G, torch.bfloat16, "tensor_cores") for G in (1, 2, 4)],
     *[(64, G, torch.bfloat16, "tensor_cores") for G in (1, 4, 8)],
+    *[(96, G, torch.bfloat16, "tensor_cores") for G in (1, 4, 8)],
     (128, 1, torch.bfloat16, "cuda_cores"),
     (64, 16, torch.bfloat16, "cuda_cores"),
+    (96, 10, torch.bfloat16, "cuda_cores"),
     *[(hd, G, torch.float32, "cuda_cores")
       for hd, G in ((128, 1), (128, 4), (128, 6), (128, 8), (256, 4))],
     *[(hd, G, torch.float32, "cuda_cores") for hd in (32, 64, 72, 96)
       for G in (1, 4, 8)],
-    *[(hd, G, torch.bfloat16, "cuda_cores") for hd in (32, 72, 96)
+    *[(hd, G, torch.bfloat16, "cuda_cores") for hd in (32, 72)
       for G in (1, 4, 8)]],
     ids=str)
 def test_decode_instance_picks_the_body(case):
@@ -190,7 +213,10 @@ def test_decode_instance_picks_the_body(case):
     # and over 32768 keys at batch 1; gemma3-1b (hd 256, one KV head) in
     # one ticket group, at buckets 8 and 1 over 544 keys; gemma3-1b in
     # float32; minitron-8b (hd 128, G 4) over a cluster; gemma3-1b's global
-    # layer at batch 1 over 32768 keys, by tickets in groups
+    # layer at batch 1 over 32768 keys, by tickets in groups; phi-3 (hd 96,
+    # G 1) on the tensor cores (split_plan_tc at hd 96), one range at bucket 8
+    # (256 CTAs, two an SM) and at batch 1, two over a cluster at batch 1
+    # over 4096 and 32768 keys
     ((8, 36, 36, 544, 64, torch.bfloat16), ("tensor_cores", 1, 544, 0)),
     ((1, 36, 36, 544, 64, torch.bfloat16), ("tensor_cores", 3, 192, 0)),
     ((1, 36, 36, 32768, 64, torch.bfloat16),
@@ -201,7 +227,12 @@ def test_decode_instance_picks_the_body(case):
     ((8, 4, 1, 544, 256, torch.float32), ("cuda_cores", 6, 96, 6)),
     ((8, 32, 8, 544, 128, torch.bfloat16), ("tensor_cores", 2, 288, 0)),
     ((1, 4, 1, 32768, 256, torch.bfloat16),
-     ("tensor_cores", 132, 249, 12))], ids=str)
+     ("tensor_cores", 132, 249, 12)),
+    ((8, 32, 32, 544, 96, torch.bfloat16), ("tensor_cores", 1, 544, 0)),
+    ((1, 32, 32, 544, 96, torch.bfloat16), ("tensor_cores", 1, 544, 0)),
+    ((1, 32, 32, 4096, 96, torch.bfloat16), ("tensor_cores", 2, 2048, 0)),
+    ((1, 32, 32, 32768, 96, torch.bfloat16),
+     ("tensor_cores", 2, 16384, 0))], ids=str)
 def test_decode_plan_at_the_serving_shapes(case):
     shape, want = case
     assert decode_plan(*shape, H100_SMS) == want
@@ -409,4 +440,36 @@ def test_decode_plain_matches_jax_at_hd64_multi_head(case):
     assert n_split > 1
     model = split_combine(tq, tk, tv, tvl, n_split, chunk,
                           split_groups(n_split, hd))
+    np.testing.assert_allclose(model.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("case", [
+    # (B, L, Hq, Hkv, valid_len): phi-3's decode at hd 96, G 1, cut to 4
+    # heads, and G 4 (8 heads over 2 KV heads): full rows, ragged rows
+    # (ending in the first range), rows at 0 (zeros, as the Pallas kernel
+    # gives)
+    (2, 1100, 4, 4, [1100, 0]),
+    (3, 1100, 4, 4, [300, 17, 1100]),
+    (2, 1100, 8, 2, [0, 1090]),
+    (1, 2100, 8, 2, [2001])], ids=str)
+def test_decode_plain_matches_jax_at_hd96(case):
+    """The plain version, and the split-and-combine model at the plan
+    phi-3's decode takes at batch 1 over L keys (32 heads: two ranges over
+    a cluster), against the Pallas kernel in interpret mode at hd 96."""
+    B, L, Hq, Hkv, vl = case
+    hd = 96
+    rng = np.random.default_rng(9)
+    q = rng.standard_normal((B, Hq, hd)).astype(np.float32)
+    k = rng.standard_normal((B, L, Hkv, hd)).astype(np.float32)
+    v = rng.standard_normal((B, L, Hkv, hd)).astype(np.float32)
+    vl = np.array(vl, np.int32)
+    want = np.asarray(j_decode_pallas(*map(jnp.asarray, (q, k, v, vl)),
+                                      block_k=64, interpret=True))
+    tq, tk, tv, tvl = map(torch.from_numpy, (q, k, v, vl))
+    got = decode_attention_plain(tq, tk, tv, tvl)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    _, n_split, chunk, group = decode_plan(1, 32, 32, L, hd, torch.bfloat16,
+                                           H100_SMS)
+    assert n_split > 1 and group == 0
+    model = split_combine(tq, tk, tv, tvl, n_split, chunk, group)
     np.testing.assert_allclose(model.numpy(), want, **TOL)

@@ -347,7 +347,9 @@ def test_decode_attention_kernel_matches_plain_at_hd256(cuda, case, dtype):
                                   (1, 32768, 48, 8, 128, 30001),
                                   (8, 544, 40, 8, 128, 500),
                                   (8, 544, 36, 36, 64, 500),
-                                  (1, 32768, 36, 36, 64, 30001)], ids=str)
+                                  (1, 32768, 36, 36, 64, 30001),
+                                  (8, 544, 32, 32, 96, 500),
+                                  (1, 32768, 32, 32, 96, 30001)], ids=str)
 def test_decode_attention_replays_equal_bit_for_bit(cuda, case):
     """A decode captured in a CUDA graph at a plan that combines by tickets
     (132 CTAs in groups at a 32k cache; one group at bucket 8; hd 128 past
@@ -385,7 +387,9 @@ def test_decode_attention_replays_equal_bit_for_bit(cuda, case):
 @pytest.mark.parametrize("case", [(1, 32768, 4, 1, 256, 30001),
                                   (1, 4096, 8, 1, 128, 4000),
                                   (1, 4096, 48, 8, 128, 4000),
-                                  (2, 544, 32, 8, 128, 500)], ids=str)
+                                  (2, 544, 32, 8, 128, 500),
+                                  (1, 4096, 32, 32, 96, 4000),
+                                  (8, 544, 32, 32, 96, 500)], ids=str)
 def test_decode_attention_on_two_streams_at_once(cuda, case):
     """Ticket-combined decodes of two inputs launched in turns on two
     streams, so that they overlap on the card: each output equals its own
@@ -538,6 +542,51 @@ def test_decode_attention_tensor_cores_at_other_plans_at_hd64(
                                                      torch.bfloat16)
 
 
+@pytest.mark.parametrize("case", [
+    # (B, L, Hq, Hkv, hd, valid_len): phi-3's decode at hd 96 (32 heads, G
+    # 1: phi3-mini, phi-3-vision), which bf16 runs on the tensor cores on
+    # three 32-column panels, at split_plan_tc's plans: the serving buckets
+    # 8, 4, 2 and 1 over 544 keys with ragged rows, rows at 0 and
+    # valid_len no multiple of 16, batch 1 over 4096 and 32768 keys; G 4
+    # and 8 (the mma's last column)
+    (8, 544, 32, 32, 96, [544, 0, 1, 300, 64, 65, 543, 17]),
+    (4, 544, 32, 32, 96, [544, 200, 0, 31]),
+    (2, 544, 32, 32, 96, [543, 544]),
+    (1, 544, 32, 32, 96, [544]),
+    (1, 544, 32, 32, 96, [37]),
+    (1, 4096, 32, 32, 96, [4001]),
+    (1, 32768, 32, 32, 96, [32768]),
+    (1, 32768, 32, 32, 96, [20001]),
+    (4, 1000, 32, 8, 96, [999, 0, 15, 500]),
+    (3, 333, 64, 8, 96, [333, 1, 0]),
+    (2, 9000, 8, 1, 96, [0, 8999])], ids=str)
+def test_decode_attention_kernel_matches_plain_at_hd96(cuda, case):
+    test_decode_attention_split_kernel_matches_plain(cuda, case,
+                                                     torch.bfloat16)
+
+
+@pytest.mark.parametrize("n_split", range(2, 9))
+@pytest.mark.parametrize("case", [(1, 4096, 32, 32, 96, [4001]),
+                                  (2, 544, 32, 8, 96, [0, 543]),
+                                  (1, 544, 64, 8, 96, [300])], ids=str)
+def test_decode_attention_tensor_cores_at_2_to_8_ranges_at_hd96(
+        cuda, monkeypatch, case, n_split):
+    """The hd 96 tensor-core body at every plan of one cluster (2 to 8
+    ranges of whole 32-key tiles, the last ones past valid_len), most of
+    which its planner (``split_plan_tc``) does not give at these shapes,
+    G 1, 4 and 8, against the plain version."""
+    import importlib
+    dm = importlib.import_module("repro_torch.kernels.decode_attention")
+    B, L, Hq, Hkv, hd, vl = case
+    chunk = -(-L // n_split // 32) * 32
+    plan = (-(-L // chunk), chunk)
+    monkeypatch.setattr(dm, "split_plan_tc", lambda *_: plan)
+    assert dm.decode_plan(B, Hq, Hkv, L, hd, torch.bfloat16, 132) == \
+        ("tensor_cores", *plan, 0)
+    test_decode_attention_split_kernel_matches_plain(cuda, case,
+                                                     torch.bfloat16)
+
+
 @pytest.mark.parametrize("plan", [(16, 256), (12, 350), (40, 103)], ids=str)
 @pytest.mark.parametrize("case", [(1, 4096, 48, 8, 128, [4096]),
                                   (2, 4001, 32, 8, 128, [0, 3999])], ids=str)
@@ -559,15 +608,14 @@ def test_decode_attention_tensor_cores_past_one_cluster_at_hd128(
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("case", [(64, 1), (128, 1), (128, 2), (128, 6),
                                   (128, 8), (256, 4), (96, 4), (64, 4),
-                                  (64, 8), (64, 16)], ids=str)
+                                  (64, 8), (64, 16), (96, 1), (96, 8),
+                                  (96, 10)], ids=str)
 def test_decode_attention_runs_the_instance_decode_instance_names(cuda, case,
                                                                  dtype):
     """The body that a launch runs on the card, by the profiler's kernel
     name, is the one ``decode_instance`` names: ``dec_kernel_tc`` for bf16
-    at hd 256, at hd 128 with 2 <= G <= 8 and at hd 64 with G <= 8,
+    at hd 256, at hd 128 with 2 <= G <= 8 and at hd 64 and 96 with G <= 8,
     ``dec_kernel`` else."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.kernels.decode_attention import decode_instance
     hd, G = case
     Hkv = 8 if hd == 128 else 1
@@ -576,19 +624,17 @@ def test_decode_attention_runs_the_instance_decode_instance_names(cuda, case,
     vlen = torch.full((2,), 300, dtype=torch.int32, device="cuda")
     decode_attention(q, k, k, vlen)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        decode_attention(q, k, k, vlen)
-        torch.cuda.synchronize()
-    names = [e.key for e in prof.key_averages() if "dec_kernel" in e.key]
+    names = SMOKE.profiled_kernel_names(
+        lambda: decode_attention(q, k, k, vlen), "dec_kernel")
     assert names, "the profiler saw no decode kernel"
     on_tc = all("dec_kernel_tc" in n for n in names)
     assert on_tc == (decode_instance(hd, G, dtype) == "tensor_cores"), names
 
 
-@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("hd", [64, 96, 128, 256])
 def test_bf16_decode_runs_its_grouped_products_on_the_tensor_cores(cuda, hd):
-    """``dec_kernel_tc`` at hd 64, 128 and 256 holds HMMA (``mma.sync``)
-    instructions in its SASS and spills nothing (ptxas)."""
+    """``dec_kernel_tc`` at hd 64, 96, 128 and 256 holds HMMA
+    (``mma.sync``) instructions in its SASS and spills nothing (ptxas)."""
     import shutil
     import subprocess
 

@@ -2,7 +2,8 @@
 
     python3 tools/time_kernels.py ROOT [TAG] [--hd256 | --hd128 | --hd128-plans
                                               | --flash [--sdpa] [--clean]
-                                              | --hd64 | --hd64-plans]
+                                              | --hd64 | --hd64-plans
+                                              | --hd96 | --hd96-plans]
 
 imports ``repro_torch`` from ``ROOT/src`` (building its kernels into
 ``ROOT/build``) and times, bf16, at the serving shapes that
@@ -40,7 +41,10 @@ beside SDPA with ``--sdpa``, with a clean L2 with ``--clean``
 at hd 64 (36 heads, G 1) and the other hd 64 joins (whisper-tiny's
 encoder, zamba2-1.2b), each beside SDPA and its bound, and both kernels'
 one-CTA fits (``hd64_times``); with ``--hd64-plans`` that decode on each
-body and at other splits of the cache (``hd64_plans``).  Each time is the
+body and at other splits of the cache (``hd64_plans``).  With ``--hd96``
+it times phi-3's decode at hd 96 (32 heads, G 1) likewise, with its
+one-CTA fit and its ptxas lines (``hd96_times``); with ``--hd96-plans``
+that decode on each body and at other splits (``hd96_plans``).  Each time is the
 median of 25 CUDA-event timings, L2 flushed, a device-side sleep ahead of
 each.  It prints one JSON line.  Run it on several checkouts in turns
 (A, B, B, A) in one call to compare them on one card.
@@ -362,6 +366,86 @@ def hd128_plans(dec_mod, rnd, flush):
     return out
 
 
+DECODE_CASES = ((8, 544), (4, 544), (2, 544), (1, 544), (1, 4096),
+                (1, 32768))
+# the decode wrapper's planners, each swapped for a fixed plan where a
+# timing fixes it (a checkout may lack the later ones)
+PLANNERS = ("split_plan", "split_plan_tc")
+
+
+def restore(dec_mod, saved):
+    """Put back the module attributes ``saved`` holds (None: absent)."""
+    for n, f in saved.items():
+        if f is None:
+            if hasattr(dec_mod, n):
+                delattr(dec_mod, n)
+        else:
+            setattr(dec_mod, n, f)
+
+
+def decode_rows(dec_mod, rnd, flush, H, hd, plain=False):
+    """The decode of ``H`` heads, G 1, at head dim ``hd`` at buckets 8, 4,
+    2 and 1 over 544 keys and at batch 1 over 4096 and 32768 keys
+    (``decode<hd>_B*_L*``), each beside SDPA and its bound, with its error
+    against the plain version (absolute and as a share of the row's norm)
+    and the plan the wrapper took; with ``plain`` also the plain version at
+    bucket 8 (behind a 25 ms device sleep, as phase 4)."""
+    F = torch.nn.functional
+    decode_attention = dec_mod.decode_attention
+    out = {}
+    for B, L in DECODE_CASES:
+        key = f"decode{hd}_B{B}_L{L}"
+        q = rnd(B, H, hd).bfloat16()
+        k, v = rnd(B, L, H, hd).bfloat16(), rnd(B, L, H, hd).bfloat16()
+        vlen = torch.full((B,), L, dtype=torch.int32, device=q.device)
+        got = decode_attention(q, k, v, vlen).float()
+        want = dec_mod.decode_attention_plain(q, k, v, vlen).float()
+        d = got - want
+        out[f"{key}_err"] = d.abs().max().item()
+        out[f"{key}_row_err"] = (d.norm(dim=-1)
+                                 / want.norm(dim=-1)).max().item()
+        out[f"{key}_ms"] = time_ms(lambda: decode_attention(q, k, v, vlen),
+                                   flush)
+        out[f"{key}_sdpa_ms"] = time_ms(
+            lambda: F.scaled_dot_product_attention(
+                q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)), flush)
+        if plain and B == 8:
+            out[f"{key}_plain_ms"] = time_ms(
+                lambda: dec_mod.decode_attention_plain(q, k, v, vlen), flush,
+                sleep=50_000_000)
+        out[f"{key}_bound_ms"] = bound_ms(
+            4 * q.numel() + 2 * 2 * B * L * H * hd + 4 * B,
+            4 * hd * H * B * L)
+        if hasattr(dec_mod, "decode_plan"):
+            out[f"{key}_plan"] = list(dec_mod.decode_plan(
+                B, H, H, L, hd, torch.bfloat16,
+                torch.cuda.get_device_properties(0).multi_processor_count))
+    return out
+
+
+def decode_fit(dec_mod, rnd, flush, H, hd):
+    """The decode's one-CTA fit: ``H`` CTAs (batch 1, ``H`` heads), each one
+    range of the cache (the plan fixed), over 1 and 32 tiles of 32 keys:
+    the fixed cost of a CTA and the cost of each further 32 keys
+    (``decode<hd>_fit_*``)."""
+    saved = {n: getattr(dec_mod, n, None) for n in PLANNERS}
+    fit = {}
+    try:
+        for L in (32, 1024):
+            for n in PLANNERS:
+                setattr(dec_mod, n, lambda *_, L=L: (1, L))
+            q = rnd(1, H, hd).bfloat16()
+            k, v = rnd(1, L, H, hd).bfloat16(), rnd(1, L, H, hd).bfloat16()
+            vlen = torch.full((1,), L, dtype=torch.int32, device=q.device)
+            fit[L] = time_ms(
+                lambda: dec_mod.decode_attention(q, k, v, vlen), flush)
+    finally:
+        restore(dec_mod, saved)
+    per_tile = (fit[1024] - fit[32]) / 31
+    return {f"decode{hd}_fit_fixed_ms": fit[32] - per_tile,
+            f"decode{hd}_fit_per_tile_ms": per_tile}
+
+
 def hd64_times(flash_attention, flash_attention_plain, dec_mod, rnd,
                flush, ptxas):
     """Attention at hd 64 (minicpm-2b: 36 heads, G 1), beside SDPA and the
@@ -439,52 +523,8 @@ def hd64_times(flash_attention, flash_attention_plain, dec_mod, rnd,
         per_work = (walk[8] - walk[1]) / 7
         out.update(flash64_walk_fixed_ms=walk[1] - per_work,
                    flash64_walk_per_work_tile_ms=per_work)
-    decode_attention = dec_mod.decode_attention
-    for B, L in ((8, 544), (4, 544), (2, 544), (1, 544), (1, 4096),
-                 (1, 32768)):
-        key = f"decode64_B{B}_L{L}"
-        q = rnd(B, 36, 64).bfloat16()
-        k, v = rnd(B, L, 36, 64).bfloat16(), rnd(B, L, 36, 64).bfloat16()
-        vlen = torch.full((B,), L, dtype=torch.int32, device=q.device)
-        got = decode_attention(q, k, v, vlen).float()
-        want = dec_mod.decode_attention_plain(q, k, v, vlen).float()
-        d = got - want
-        out[f"{key}_err"] = d.abs().max().item()
-        out[f"{key}_row_err"] = (d.norm(dim=-1)
-                                 / want.norm(dim=-1)).max().item()
-        out[f"{key}_ms"] = time_ms(lambda: decode_attention(q, k, v, vlen),
-                                   flush)
-        out[f"{key}_sdpa_ms"] = time_ms(
-            lambda: F.scaled_dot_product_attention(
-                q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)), flush)
-        out[f"{key}_bound_ms"] = bound_ms(
-            4 * q.numel() + 2 * 2 * B * L * 36 * 64 + 4 * B,
-            4 * 64 * 36 * B * L)
-        if hasattr(dec_mod, "decode_plan"):
-            out[f"{key}_plan"] = list(dec_mod.decode_plan(
-                B, 36, 36, L, 64, torch.bfloat16,
-                torch.cuda.get_device_properties(0).multi_processor_count))
-    # the decode's one-CTA fit: 36 CTAs (batch 1, 36 heads), each one range
-    # of the cache, over 1 and 32 tiles of 32 keys
-    planners = (dec_mod.split_plan, getattr(dec_mod, "split_plan_tc", None))
-    fit = {}
-    try:
-        for L in (32, 1024):
-            dec_mod.split_plan = dec_mod.split_plan_tc = \
-                lambda *_, L=L: (1, L)
-            q = rnd(1, 36, 64).bfloat16()
-            k, v = rnd(1, L, 36, 64).bfloat16(), rnd(1, L, 36, 64).bfloat16()
-            vlen = torch.full((1,), L, dtype=torch.int32, device=q.device)
-            fit[L] = time_ms(lambda: decode_attention(q, k, v, vlen), flush)
-    finally:
-        dec_mod.split_plan = planners[0]
-        if planners[1] is None:
-            del dec_mod.split_plan_tc
-        else:
-            dec_mod.split_plan_tc = planners[1]
-    per_tile = (fit[1024] - fit[32]) / 31
-    out.update(decode64_fit_fixed_ms=fit[32] - per_tile,
-               decode64_fit_per_tile_ms=per_tile)
+    out.update(decode_rows(dec_mod, rnd, flush, 36, 64))
+    out.update(decode_fit(dec_mod, rnd, flush, 36, 64))
     for src, text in ptxas.items():
         regs, fn = {}, None
         for ln in text.splitlines():
@@ -498,37 +538,38 @@ def hd64_times(flash_attention, flash_attention_plain, dec_mod, rnd,
     return out
 
 
-def hd64_plans(dec_mod, rnd, flush):
-    """The decode at hd 64 (36 heads, G 1) on each body the checkout's C
-    launcher takes there (``decode_instance`` forced to ``cuda_cores`` and
-    to ``tensor_cores``; a body it refuses is skipped) and at other splits
-    of the cache than the wrapper's plan: every ``n_split`` of 1, 2, 3, 4,
-    6 and 8 (one cluster, whole 32-key tiles) at buckets 8 and 1 over 544
-    keys, and at batch 1 over 32768 keys those and 16, 32 and 64 (the
-    ticket combine) (``plan64_<body>_B*_L*_{n_split}x{chunk}``)."""
+def decode_plans(dec_mod, rnd, flush, H, hd, cases):
+    """The decode of ``H`` heads, G 1, at head dim ``hd`` on each body the
+    checkout's C launcher takes there (``decode_instance`` forced to
+    ``cuda_cores`` and to ``tensor_cores``; a body it refuses is skipped)
+    and at other splits of the cache than the wrapper's plan: at each (B, L)
+    of ``cases`` every ``n_split`` of 1 to 8 (one cluster, whole 32-key
+    tiles) that cuts the cache into that many ranges, and past 544 keys 16,
+    32 and 64 (the ticket combine) too
+    (``plan<hd>_<body>_B*_L*_{n_split}x{chunk}``)."""
     out = {}
     saved = {n: getattr(dec_mod, n, None)
-             for n in ("split_plan", "split_plan_tc", "decode_instance")}
+             for n in (*PLANNERS, "decode_instance")}
     try:
         for inst in ("cuda_cores", "tensor_cores"):
             dec_mod.decode_instance = lambda *_, i=inst: i
-            for B, L in ((8, 544), (1, 544), (1, 32768)):
-                q = rnd(B, 36, 64).bfloat16()
-                k = rnd(B, L, 36, 64).bfloat16()
-                v = rnd(B, L, 36, 64).bfloat16()
+            for B, L in cases:
+                q = rnd(B, H, hd).bfloat16()
+                k = rnd(B, L, H, hd).bfloat16()
+                v = rnd(B, L, H, hd).bfloat16()
                 vlen = torch.full((B,), L, dtype=torch.int32,
                                   device=q.device)
-                for n in (1, 2, 3, 4, 6, 8, 16, 32, 64):
-                    if n > 8 and L == 544:
+                for n in (1, 2, 3, 4, 5, 6, 7, 8, 16, 32, 64):
+                    if n > 8 and L <= 544:
                         continue
                     chunk = -(-L // n)
                     if n <= 8:
                         chunk = -(-chunk // 32) * 32
                     if -(-L // chunk) != n:
                         continue
-                    dec_mod.split_plan = dec_mod.split_plan_tc = \
-                        lambda *_, p=(n, chunk): p
-                    key = f"plan64_{inst}_B{B}_L{L}_{n}x{chunk}"
+                    for name in PLANNERS:
+                        setattr(dec_mod, name, lambda *_, p=(n, chunk): p)
+                    key = f"plan{hd}_{inst}_B{B}_L{L}_{n}x{chunk}"
                     try:
                         out[key] = time_ms(
                             lambda: dec_mod.decode_attention(q, k, v, vlen),
@@ -537,19 +578,54 @@ def hd64_plans(dec_mod, rnd, flush):
                         out[key] = f"refused: {e}"[:120]
                         break
     finally:
-        for n, f in saved.items():
-            if f is None:
-                if hasattr(dec_mod, n):
-                    delattr(dec_mod, n)
-            else:
-                setattr(dec_mod, n, f)
+        restore(dec_mod, saved)
     return out
+
+
+def hd64_plans(dec_mod, rnd, flush):
+    """The decode at hd 64 (36 heads, G 1) on each body and at every split
+    of 1 to 8 ranges at buckets 8 and 1 over 544 keys, and at
+    batch 1 over 32768 keys those and 16, 32 and 64 (:func:`decode_plans`;
+    ``plan64_<body>_B*_L*_{n_split}x{chunk}``)."""
+    return decode_plans(dec_mod, rnd, flush, 36, 64,
+                        ((8, 544), (1, 544), (1, 32768)))
+
+
+def hd96_times(dec_mod, rnd, flush, ptxas):
+    """phi-3's decode at hd 96 (phi3-mini and phi-3-vision: 32 heads over 32
+    KV heads, G 1) at buckets 8, 4, 2 and 1 over 544 keys and at batch 1
+    over 4096 and 32768 keys, each beside SDPA and its bound, with its error
+    against the plain version, the plan the wrapper took and, at bucket 8,
+    the plain version's time (``decode96_B*_L*``); its one-CTA fit (32
+    CTAs, one range each; ``decode96_fit_*``); and the decode kernel's bf16
+    hd 96 instances' registers and spills from the compiler's report
+    (``decode_attention_ptxas``)."""
+    out = decode_rows(dec_mod, rnd, flush, 32, 96, plain=True)
+    out.update(decode_fit(dec_mod, rnd, flush, 32, 96))
+    regs, fn = {}, None
+    for ln in ptxas.splitlines():
+        if "Function properties for" in ln:
+            fn = ln.split("Function properties for")[1].strip()
+        elif fn and "Li96E" in fn and "IfLi" not in fn \
+                and ("Used " in ln or "spill" in ln):
+            regs.setdefault(fn, []).append(ln.strip())
+    out["decode_attention_ptxas"] = regs
+    return out
+
+
+def hd96_plans(dec_mod, rnd, flush):
+    """phi-3's decode at hd 96 (32 heads, G 1) on each body and at every
+    split of 1 to 8 ranges at buckets 8, 4, 2 and 1 over 544 keys and at
+    batch 1 over 4096 and 32768 keys, and 16, 32 and 64 past 544 keys
+    (:func:`decode_plans`; ``plan96_<body>_B*_L*_{n_split}x{chunk}``)."""
+    return decode_plans(dec_mod, rnd, flush, 32, 96, DECODE_CASES)
 
 
 def main(root: Path, tag: str, hd256: bool = False,
          hd128: bool = False, plans: bool = False, flash: bool = False,
          sdpa: bool = False, clean: bool = False, hd64: bool = False,
-         plans64: bool = False) -> int:
+         plans64: bool = False, hd96: bool = False,
+         plans96: bool = False) -> int:
     if not torch.cuda.is_available():
         print("time_kernels: CUDA is not available", file=sys.stderr)
         return 1
@@ -577,6 +653,17 @@ def main(root: Path, tag: str, hd256: bool = False,
         return 0
     if plans64:
         out.update(hd64_plans(dec_mod, rnd, flush))
+        print(json.dumps(out), flush=True)
+        return 0
+    if plans96:
+        out.update(hd96_plans(dec_mod, rnd, flush))
+        print(json.dumps(out), flush=True)
+        return 0
+    if hd96:
+        from repro_torch.kernels import _build
+        _build.build(("decode_attention",))
+        out.update(hd96_times(dec_mod, rnd, flush,
+                              _build.ptxas_log("decode_attention").read_text()))
         print(json.dumps(out), flush=True)
         return 0
     if hd64:
@@ -665,7 +752,7 @@ def main(root: Path, tag: str, hd256: bool = False,
 
 if __name__ == "__main__":
     flags = ("--hd256", "--hd128", "--hd128-plans", "--flash", "--sdpa",
-             "--clean", "--hd64", "--hd64-plans")
+             "--clean", "--hd64", "--hd64-plans", "--hd96", "--hd96-plans")
     args = [a for a in sys.argv[1:] if a not in flags]
     if len(args) not in (1, 2):
         sys.exit(__doc__)
@@ -677,4 +764,6 @@ if __name__ == "__main__":
                   sdpa="--sdpa" in sys.argv[1:],
                   clean="--clean" in sys.argv[1:],
                   hd64="--hd64" in sys.argv[1:],
-                  plans64="--hd64-plans" in sys.argv[1:]))
+                  plans64="--hd64-plans" in sys.argv[1:],
+                  hd96="--hd96" in sys.argv[1:],
+                  plans96="--hd96-plans" in sys.argv[1:]))
