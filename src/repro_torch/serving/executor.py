@@ -34,7 +34,10 @@ executor passes them (the frontends are stubs in both packages).
 executor compiles one join and one step executable per bucket, this one
 captures one join and one step program per bucket at set-up
 (``_ContinuousState.joins`` / ``steps``).  Off the card the programs run
-their bodies through the same static buffers.
+their bodies through the same static buffers.  With the tracer on
+(``repro_torch.trace``) each join and step records its span (split into
+stage, launch and sync), its device interval and, for a step, the device
+time of its gather, model and scatter.
 """
 from __future__ import annotations
 
@@ -47,6 +50,7 @@ from typing import Any, Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..core.batching import pow2_bucket
 from ..core.types import FunctionSpec, Invocation
 from ..device import DeviceLike, resolve_device
@@ -514,20 +518,24 @@ class ContinuousTorchExecutor:
     def _step(st: _ContinuousState, slot_ids: torch.Tensor) -> torch.Tensor:
         """One ragged decode step of the slab rows ``slot_ids``; returns the
         logits (b, 1, V)."""
-        sm = st.served
+        sm, dev = st.served, slot_ids.device
+        trace.mark("gather", dev)
         # a private copy of the active rows: decode updates it in place
         sub = {"layers": [{key: t.index_select(1, slot_ids)
                            for key, t in e.items()}
                           for e in st.slab["layers"]]}
         pos = st.pos.index_select(0, slot_ids)
-        lg, c2 = decode_step_ragged(sm.cfg, st.params, sub,
-                                    st.tok.index_select(0, slot_ids), pos)
+        tok = st.tok.index_select(0, slot_ids)
+        trace.mark("model", dev)
+        lg, c2 = decode_step_ragged(sm.cfg, st.params, sub, tok, pos)
         ntok = torch.argmax(lg, dim=-1).to(torch.int32)         # (b,1)
+        trace.mark("scatter", dev)
         for se, ce in zip(st.slab["layers"], c2["layers"]):
             for key in se:
                 se[key].index_copy_(1, slot_ids, ce[key])
         st.tok.index_copy_(0, slot_ids, ntok)
         st.pos.index_copy_(0, slot_ids, pos + 1)
+        trace.mark("end", dev)
         return lg
 
     def _note_finite(self, st: _ContinuousState) -> None:
@@ -557,7 +565,7 @@ class ContinuousTorchExecutor:
     def _admit_seeded(self, fn_name: str, ids: List[int],
                       slots: List[int]) -> float:
         self._ensure(fn_name)
-        t0 = time.perf_counter()
+        t0 = self._start("executor.join", fn_name, slots)
         return self._admit_tokens(
             fn_name, self.prompt_tokens(fn_name, ids, len(slots)), slots, t0)
 
@@ -568,27 +576,65 @@ class ContinuousTorchExecutor:
         after the function's set-up)."""
         st = self._ensure(fn_name)
         if t0 is None:
-            t0 = time.perf_counter()
+            t0 = self._start("executor.join", fn_name, slots)
         b, slot_ids = self._pad_slots(slots)
         toks = np.asarray(tokens)
         toks = np.concatenate([toks, np.repeat(toks[:1], b - len(slots), 0)])
-        st.logits = st.joins[b](tokens=toks, slot_ids=slot_ids)
-        _sync(self.device)
-        dur = time.perf_counter() - t0
+        dur = self._run(st, st.joins[b], t0, tokens=toks, slot_ids=slot_ids)
         self._note_finite(st)
         self.n_admits += 1
         return dur
 
     def step(self, fn_name: str, slots: List[int]) -> float:
         st = self._ensure(fn_name)
-        t0 = time.perf_counter()
+        t0 = self._start("executor.step", fn_name, slots)
         b, slot_ids = self._pad_slots(slots)
-        st.logits = st.steps[b](slot_ids=slot_ids)
-        _sync(self.device)
-        dur = time.perf_counter() - t0
+        dur = self._run(st, st.steps[b], t0, slot_ids=slot_ids)
         self._note_finite(st)
         self.n_steps += 1
         return dur
+
+    def _start(self, name: str, fn_name: str, slots: List[int]) -> float:
+        """Start a join's or step's clock; with the tracer on, its span and
+        the span's stage open there (both ranges open before the clock is
+        read)."""
+        if not trace.ON:
+            return time.perf_counter()
+        call = trace.begin(name, fn=fn_name, bucket=pow2_bucket(len(slots)),
+                           slots=tuple(slots))
+        call.start = trace.begin("stage").start
+        return call.start
+
+    def _run(self, st: _ContinuousState, prog: Program, t0: float,
+             **host: Any) -> float:
+        """Stage ``host`` into ``prog``, launch it and wait for the
+        device; returns the seconds since ``t0``, with the logits kept in
+        ``st``."""
+        if trace.ON:
+            return self._run_traced(st, prog, t0, host)
+        st.logits = prog(**host)
+        _sync(self.device)
+        return time.perf_counter() - t0
+
+    def _run_traced(self, st: _ContinuousState, prog: Program, t0: float,
+                    host: Dict[str, Any]) -> float:
+        """``_run`` inside the spans ``_start`` opened: stage, launch and
+        sync tile the call, and the device stamps and the body's marks are
+        read once the call's clock has stopped."""
+        first = trace.stamp(self.device)
+        prog.stage(**host)
+        trace.then("launch")
+        with trace.collecting() as marks:
+            st.logits = prog.launch()
+        last = trace.stamp(self.device)
+        trace.then("sync")
+        _sync(self.device)
+        t1 = time.perf_counter()
+        trace.end(t1)
+        call = trace.end(t1)
+        call.device_s = trace.between(first, last)
+        call.phases = trace.phases(marks or prog.marks)
+        return t1 - t0
 
     def release_slots(self, fn_name: str, slots: List[int]) -> None:
         """Scrub the token/position rows of vacated cache slots (slab

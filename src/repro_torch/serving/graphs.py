@@ -18,7 +18,9 @@ A :class:`Program` holds
 * its outputs, kept alive from capture on (the graph writes them on every
   replay);
 * on the card, the captured graph;
-* the kernel launches one replay makes.
+* the kernel launches one replay makes;
+* the marks its body made while it was captured with the tracer on
+  (``trace.mark``: timing events that every replay records again).
 
 Off the card (the CPU, as the tests run) nothing is captured: a program
 runs its body through the same static buffers on every call.  On the card
@@ -46,6 +48,7 @@ from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional
 import numpy as np
 import torch
 
+from .. import trace
 from ..kernels import ops
 
 
@@ -105,6 +108,7 @@ class Program:
         self.outputs: Any = None
         self.graph: Any = None
         self.launches: Dict[str, int] = {}
+        self.marks: List[Any] = []
         self.runs = 0
 
     def stage(self, **host: Any) -> None:
@@ -134,7 +138,9 @@ class Program:
         this program's count per replay, and the counters are restored."""
         before = ops.launch_counts()
         try:
-            self.outputs = graph.capture(lambda: self.body(**self.inputs))
+            with trace.collecting() as self.marks:
+                self.outputs = graph.capture(
+                    lambda: self.body(**self.inputs))
         finally:
             seen = ops.launch_counts()
             ops.set_launch_counts(before)
@@ -143,10 +149,14 @@ class Program:
 
     def __call__(self, **host: Any) -> Any:
         """Stage ``host`` values (arrays or lists shaped as their inputs)
-        into the static inputs, then replay, or run the body off the card.
-        Returns the outputs; nothing waits for the device but the previous
-        call's staged copies."""
+        into the static inputs, then launch.  Returns the outputs; nothing
+        waits for the device but the previous call's staged copies."""
         self.stage(**host)
+        return self.launch()
+
+    def launch(self) -> Any:
+        """Replay the graph, or run the body off the card, on what is
+        staged; returns the outputs without waiting for the device."""
         if self.graph is None:
             self.outputs = self.body(**self.inputs)
         else:

@@ -1223,3 +1223,85 @@ def test_compiled_train_step_on_the_card_matches_the_eager_step(cuda, arch):
                                rtol=2e-4, atol=0)
     for a, b in zip(out["compiled"][1], out["eager"][1]):
         assert ((a - b).abs().max() / b.abs().max()).item() <= 2e-4
+
+
+@pytest.mark.parametrize("arch", ["minicpm-2b", "mamba2-370m"])
+def test_the_tracer_times_a_replayed_step_inside_its_graph(cuda, arch):
+    """With the tracer on from set-up, each step graph holds its body's four
+    marks as timing events, replayed with it: a replayed step's gather,
+    model and scatter are positive and lie inside its device interval,
+    which lies inside the seconds it returned.  The same script on an
+    executor set up with the tracer off (whose graphs hold no mark) makes
+    the same tokens and the same launches per replay."""
+    import numpy as np
+    from repro_torch import trace
+    from repro_torch.serving import ServedModel, graphs
+    from repro_torch.serving.executor import ContinuousTorchExecutor
+    cfg = get_config(arch, reduced=True)
+    served = {"gen": ServedModel(cfg, prompt_len=24, gen_len=4)}
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (3, 24))
+    out = {}
+    for on in (True, False):
+        trace.clear()
+        trace.enable(on)
+        try:
+            ex = ContinuousTorchExecutor(served, max_batch=4, device="cuda")
+            st = ex._ensure("gen")
+            r0 = graphs.CudaGraph.replays
+            ex._admit_tokens("gen", toks, [0, 1, 2])
+            secs = [ex.step("gen", [0, 1, 2]) for _ in range(3)]
+            assert graphs.CudaGraph.replays - r0 == 4
+        finally:
+            trace.enable(False)
+        marks = st.steps[4].marks
+        if on:
+            assert [n for n, _ in marks] == ["gather", "model", "scatter",
+                                             "end"]
+            assert all(isinstance(e, torch.cuda.Event) for _, e in marks)
+            steps = [s for s in trace.spans() if s.name == "executor.step"]
+            assert [s.end - s.start for s in steps] == secs
+            for s in steps:
+                assert list(s.phases) == ["gather", "model", "scatter"]
+                assert all(v > 0 for v in s.phases.values())
+                assert sum(s.phases.values()) < s.device_s < s.end - s.start
+        else:
+            assert marks == [] and trace.spans() == []
+        out[on] = (st.tok.clone(), [p.launches for p in st.programs.programs])
+    trace.clear()
+    assert torch.equal(out[True][0], out[False][0])
+    assert out[True][1] == out[False][1]
+
+
+def test_a_profiled_replay_lies_inside_its_launch_range(cuda):
+    """While a profile records, each replayed join and step mirrors its
+    spans as ranges: every ``cudaGraphLaunch`` lies inside a ``launch``
+    range, the counts agree, and every mirrored span pairs with a range."""
+    import numpy as np
+    from repro_torch import trace, trace_readings
+    from repro_torch.serving import ServedModel
+    from repro_torch.serving.executor import ContinuousTorchExecutor
+    cfg = get_config("minicpm-2b", reduced=True)
+    served = {"gen": ServedModel(cfg, prompt_len=24, gen_len=4)}
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (3, 24))
+    trace.clear()
+    trace.enable()
+    try:
+        ex = ContinuousTorchExecutor(served, max_batch=4, device="cuda")
+        ex._ensure("gen")
+        trace.clear()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            ex._admit_tokens("gen", toks, [0, 1, 2])
+            for _ in range(3):
+                ex.step("gen", [0, 1, 2])
+    finally:
+        trace.enable(False)
+    dev, host = trace_readings.profile_events(prof)
+    got = trace_readings.profile_readings(dev, host)
+    assert got["graph_launches"] == got["launch_ranges"] == \
+        got["graph_launches_in_launch"] == 4
+    clock = trace_readings.clock_agreement(trace.spans(), host)
+    trace.clear()
+    assert clock["pairs"] == 4 * 4 and clock["unequal"] == []
+    assert clock["excess_us"][0] > 0
