@@ -282,6 +282,23 @@ DEC96_CASES = [
     (3, 1001, 32, 8, 96, True),
     (2, 333, 64, 8, 96, False),
 ]
+# (B, R, L, Hq, Hkv, hd): a step's decode through the slot ids, query row b
+# over row rows[b] of an R-row slab (``decode_attention(..., rows=)``):
+# minicpm-2b's continuous steps over its 8-row slab at buckets 8, 4 and 1,
+# at the chat and summarize cells' cache lengths (576, 2056); hd 96, hd 128
+# at G 4 and G 1 (the CUDA cores) and hd 256 at a ticket plan.  Each must
+# equal the launch on the gathered rows bit for bit.  Their inputs come
+# from a generator of their own
+DEC_ROWS_CASES = [
+    (8, 8, 576, 36, 36, 64),
+    (4, 8, 576, 36, 36, 64),
+    (1, 8, 576, 36, 36, 64),
+    (8, 8, 2056, 36, 36, 64),
+    (4, 8, 544, 32, 32, 96),
+    (4, 8, 544, 32, 8, 128),
+    (3, 8, 300, 8, 8, 128),
+    (1, 3, 32768, 4, 1, 256),
+]
 # Phase 9: the models whose decode's cases are profiled after their serve
 # (phi-3 at hd 96, the last published instance moved to the tensor cores)
 TC_DECODE_PROFILED = ("phi3-mini-3.8b", "phi-3-vision-4.2b")
@@ -1797,10 +1814,12 @@ def kernel_shapes(kops) -> Tuple[Dict[str, set], Any]:
                                       *k.shape[2:], causal, window), dn(q)))
         return orig["attention"](q, k, v, causal=causal, window=window)
 
-    def dec(q, k, v, valid_len):
+    def dec(q, k, v, valid_len, rows=None):
+        # through rows, the B rows of a slab: the plan of B rows (phase 3
+        # holds it equal to the launch on the gathered rows)
         seen["decode_attention"].add(((q.shape[0], k.shape[1], q.shape[1],
                                        *k.shape[2:]), dn(q)))
-        return orig["decode_attention"](q, k, v, valid_len)
+        return orig["decode_attention"](q, k, v, valid_len, rows=rows)
 
     def ssd(x, dt, A, Bm, Cm, *, chunk, init_state=None):
         seen["ssd_scan"].add(((*x.shape, Bm.shape[-1], chunk,
@@ -2137,6 +2156,8 @@ def main() -> int:
     gen, gen96 = torch.Generator(device=dev), torch.Generator(device=dev)
     gen.manual_seed(0)
     gen96.manual_seed(96)
+    gen_rows = torch.Generator(device=dev)
+    gen_rows.manual_seed(8)
 
     def rnd(*shape, dtype, g=gen):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
@@ -2188,6 +2209,38 @@ def main() -> int:
                 decode_attention_plain(q, k, v, vlen), dn, rows=True)
             if zero_row and out[0].abs().max().item() != 0.0:
                 raise AssertionError("valid_len = 0 must give zeros")
+        # through the slot ids: equal to the launch on the gathered rows
+        # (rows permuted, one repeated where B > 1, one at valid_len 0
+        # where B > 2); its error is that case's, in DEC_CASES' form
+        for c in DEC_ROWS_CASES:
+            B, R, L, Hq, Hkv, hd = c
+            g = gen_rows
+            q, k, v = (rnd(B, Hq, hd, dtype=dtype, g=g),
+                       rnd(R, L, Hkv, hd, dtype=dtype, g=g),
+                       rnd(R, L, Hkv, hd, dtype=dtype, g=g))
+            ids = torch.randperm(R, generator=g, device=dev)[:B]
+            if B > 1:
+                ids[-1] = ids[0]
+            rows = ids.to(torch.int32)
+            vlen = torch.randint(1, L + 1, (B,), generator=g, device=dev,
+                                 dtype=torch.int32)
+            if B > 2:
+                vlen[1] = 0
+            out = decode_attention(q, k, v, vlen, rows=rows)
+            gathered = decode_attention(q, k.index_select(0, ids),
+                                        v.index_select(0, ids), vlen)
+            torch.cuda.synchronize()
+            if not torch.equal(out, gathered):
+                raise AssertionError(f"decode_attention {c} {dn} through "
+                                     f"rows {rows.tolist()} differs from "
+                                     f"the launch on the gathered rows")
+            key = ((B, L, Hq, Hkv, hd, B > 2), dn)
+            errs["decode_attention"][key] = max(
+                errs["decode_attention"].get(key, 0.0),
+                check(f"decode_attention {c} rows {rows.tolist()} "
+                      f"valid_len {vlen.tolist()}", out,
+                      decode_attention_plain(q, k, v, vlen, rows), dn,
+                      rows=True))
         for c in SSD_CASES:
             B, S, H, P, N, Q, init = c
             x = rnd(B, S, H, P, dtype=dtype)
@@ -2285,6 +2338,31 @@ def main() -> int:
         return t
 
     fa, dec = time_fa(8), time_dec(8)
+    # minicpm-2b's bucket-8 step decode over its 8-row slab through the slot
+    # ids (rows permuted), beside the compact launch on the same rows and
+    # the gather of one layer's K and V rows that the compact launch needs
+    # (what the step did before it decoded in place), at the chat and
+    # summarize cells' cache lengths, every row at valid_len 544
+    report["decode_rows"] = {}
+    for L in (576, 2056):
+        qd = rnd(8, 36, 64, dtype=bf)
+        kd, vd = rnd(8, L, 36, 64, dtype=bf), rnd(8, L, 36, 64, dtype=bf)
+        ids = torch.randperm(8, device=dev)
+        rows = ids.to(torch.int32)
+        kc, vc = kd.index_select(0, ids), vd.index_select(0, ids)
+        vlen = torch.full((8,), 544, dtype=torch.int32, device=dev)
+        t = {"rows_ms": time_ms(lambda: decode_attention(qd, kd, vd, vlen,
+                                                         rows=rows)),
+             "compact_ms": time_ms(lambda: decode_attention(qd, kc, vc,
+                                                            vlen)),
+             "gather_ms": time_ms(lambda: (kd.index_select(0, ids),
+                                           vd.index_select(0, ids)))}
+        report["decode_rows"][L] = t
+        log(f"[timing] decode_attention (8,{L},36,36,64) valid_len 544: "
+            f"through the slot ids of an 8-row slab {t['rows_ms']:.4f} ms, "
+            f"compact {t['compact_ms']:.4f} ms, the gather of one layer's "
+            f"K/V rows {t['gather_ms']:.4f} ms; {smi}")
+    del qd, kd, vd, kc, vc
     fa1, dec1 = time_fa(1, plain=False), time_dec(1, plain=False)
     for nm, t in (("flash_attention (1,512,512,36,36,64) causal", fa1),
                   ("decode_attention (1,544,36,36,64) valid_len 544", dec1)):

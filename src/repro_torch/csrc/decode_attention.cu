@@ -4,6 +4,10 @@
 // Replaces the Pallas TPU kernel src/repro/kernels/decode_attention.py,
 // function decode_attention (body _dec_kernel).  Same contract: q (B,Hq,hd),
 // k/v (B,L,Hkv,hd) in prefix layout, valid_len (B,) int32 -> o (B,Hq,hd).
+// Beyond it, an optional row index: with rows (B,) int32, k/v are (R,L,Hkv,
+// hd), any R, and query row b attends over cache row rows[b], so that a
+// serving step decodes against its slab of R slots in place; q, o and
+// valid_len stay indexed by b, and the plan is the one of B rows.
 // Scores scaled by 1/sqrt(hd); the G = Hq/Hkv query heads of a KV head
 // are processed together; keys at or past min(valid_len, L) are masked and
 // never read; online softmax in float32 with the finite mask value -1e30; l
@@ -382,8 +386,9 @@ template <typename T, int HD, int GC>
 __global__ void __launch_bounds__(NT)
     dec_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const int* __restrict__ valid_len,
-               T* __restrict__ o, float* __restrict__ scratch, int L, int Hq,
-               int Hkv, int chunk, int group, float scale_log2) {
+               const int* __restrict__ rows, T* __restrict__ o,
+               float* __restrict__ scratch, int L, int Hq, int Hkv, int chunk,
+               int group, float scale_log2) {
   using C = Cfg<T, HD, GC>;
   constexpr int NCH = C::NCH, STAGES = C::STAGES;
   constexpr int CPR = HD * (int)sizeof(T) / 16;  // 16-byte chunks per row
@@ -400,8 +405,9 @@ __global__ void __launch_bounds__(NT)
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const long kv_row = (long)Hkv * HD;
   const long qo_off = ((long)b * Hq + (long)hk * G) * HD;
-  const T* kb = k + (long)b * L * kv_row + (long)hk * HD;
-  const T* vb = v + (long)b * L * kv_row + (long)hk * HD;
+  const long kr = rows ? rows[b] : b;               // the cache row
+  const T* kb = k + kr * L * kv_row + (long)hk * HD;
+  const T* vb = v + kr * L * kv_row + (long)hk * HD;
   const int n = max(0, min(valid_len[b], L));      // keys that attend
   const int k_begin = split * chunk;
   const int k_end = min(k_begin + chunk, n);
@@ -618,6 +624,7 @@ __global__ void __launch_bounds__(NT, HD == 64 ? 3 : HD == 96 ? 2 : 1)
                   const __grid_constant__ CUtensorMap tv,
                   const __nv_bfloat16* __restrict__ q,
                   const int* __restrict__ valid_len,
+                  const int* __restrict__ rows,
                   __nv_bfloat16* __restrict__ o, float* __restrict__ scratch,
                   int L, int Hq, int Hkv, int chunk, int group,
                   float scale_log2) {
@@ -640,6 +647,7 @@ __global__ void __launch_bounds__(NT, HD == 64 ? 3 : HD == 96 ? 2 : 1)
   const int g = lane >> 2, t4 = lane & 3;   // fragment row group, column pair
   const long qo_off = ((long)b * Hq + (long)hk * G) * HD;
   const int n = max(0, min(valid_len[b], L));      // keys that attend
+  const int kr = rows ? rows[b] : b;               // the cache row
   const int k_begin = split * chunk;
   const int k_end = min(k_begin + chunk, n);
   const int nblk = k_end > k_begin ? (k_end - k_begin + TC_KB - 1) / TC_KB : 0;
@@ -662,8 +670,8 @@ __global__ void __launch_bounds__(NT, HD == 64 ? 3 : HD == 96 ? 2 : 1)
     hp::mbar_expect_tx(bar, C::STAGE, on);
 #pragma unroll
     for (int p = 0; p < PANELS; ++p) {
-      hp::tma_load4(sK + p * PANEL, &tk, C::PCOLS * p, hk, k0, b, bar, on);
-      hp::tma_load4(sV + p * PANEL, &tv, C::PCOLS * p, hk, k0, b, bar, on);
+      hp::tma_load4(sK + p * PANEL, &tk, C::PCOLS * p, hk, k0, kr, bar, on);
+      hp::tma_load4(sV + p * PANEL, &tv, C::PCOLS * p, hk, k0, kr, bar, on);
     }
   };
 #pragma unroll
@@ -812,8 +820,8 @@ cudaError_t zero_tickets(float* scratch, int B, int Hkv, int G, int n_split,
 // MAX_GROUP_WIDTH)
 template <typename T, int HD, int GC>
 int launch(const void* q, const void* k, const void* v, const int* vlen,
-           void* o, float* scratch, int B, int L, int Hq, int Hkv,
-           int n_split, int chunk, int group, cudaStream_t stream) {
+           const int* rows, void* o, float* scratch, int B, int L, int Hq,
+           int Hkv, int n_split, int chunk, int group, cudaStream_t stream) {
   constexpr int PREV = GC == 1 ? 0 : GC == 4 ? 1 : GC == 16 ? 4 : 16;
   if constexpr (PREV >= 1024 / HD) {
     return -1;
@@ -846,7 +854,7 @@ int launch(const void* q, const void* k, const void* v, const int* vlen,
     cfg.numAttrs = group == 0 && n_split > 1 ? 1 : 0;
     err = cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(q),
                              static_cast<const T*>(k),
-                             static_cast<const T*>(v), vlen,
+                             static_cast<const T*>(v), vlen, rows,
                              static_cast<T*>(o), scratch, L, Hq, Hkv, chunk,
                              group, scale_log2);
     if (err != cudaSuccess) return (int)err;
@@ -856,13 +864,13 @@ int launch(const void* q, const void* k, const void* v, const int* vlen,
 
 template <typename T, int HD>
 int dispatch_g(int G, const void* q, const void* k, const void* v,
-               const int* vlen, void* o, float* scratch, int B, int L,
-               int Hq, int Hkv, int n_split, int chunk, int group,
-               cudaStream_t s) {
+               const int* vlen, const int* rows, void* o, float* scratch,
+               int B, int L, int Hq, int Hkv, int n_split, int chunk,
+               int group, cudaStream_t s) {
 #define REPRO_DEC_G(GC)                                                     \
   if (G <= GC)                                                              \
-    return launch<T, HD, GC>(q, k, v, vlen, o, scratch, B, L, Hq, Hkv,      \
-                             n_split, chunk, group, s);
+    return launch<T, HD, GC>(q, k, v, vlen, rows, o, scratch, B, L, Hq,     \
+                             Hkv, n_split, chunk, group, s);
   REPRO_DEC_G(1)
   REPRO_DEC_G(4)
   REPRO_DEC_G(16)
@@ -873,14 +881,14 @@ int dispatch_g(int G, const void* q, const void* k, const void* v,
 
 template <typename T>
 int dispatch_hd(int hd, const void* q, const void* k, const void* v,
-                const int* vlen, void* o, float* scratch, int B, int L,
-                int Hq, int Hkv, int n_split, int chunk, int group,
-                cudaStream_t s) {
+                const int* vlen, const int* rows, void* o, float* scratch,
+                int B, int L, int Hq, int Hkv, int n_split, int chunk,
+                int group, cudaStream_t s) {
   const int G = Hq / Hkv;
 #define REPRO_DEC_HD(HD)                                                    \
   case HD:                                                                  \
-    return dispatch_g<T, HD>(G, q, k, v, vlen, o, scratch, B, L, Hq, Hkv,   \
-                             n_split, chunk, group, s);
+    return dispatch_g<T, HD>(G, q, k, v, vlen, rows, o, scratch, B, L, Hq,  \
+                             Hkv, n_split, chunk, group, s);
   switch (hd) {
     REPRO_DEC_HD(32)
     REPRO_DEC_HD(64)
@@ -894,11 +902,13 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v,
 }
 
 // dec_kernel_tc (bf16): the cluster combine up to MAX_CLUSTER ranges where
-// the wrapper asks for it (group 0), else tickets
+// the wrapper asks for it (group 0), else tickets; the TMA maps span the R
+// rows of the cache
 template <int HD>
 int launch_tc(const void* q, const void* k, const void* v, const int* vlen,
-              void* o, float* scratch, int B, int L, int Hq, int Hkv,
-              int n_split, int chunk, int group, cudaStream_t stream) {
+              const int* rows, void* o, float* scratch, int B, int R, int L,
+              int Hq, int Hkv, int n_split, int chunk, int group,
+              cudaStream_t stream) {
   using C = TcCfg<HD>;
   if (Hq / Hkv > C::GC) return -1;
   if (group == 0 ? n_split > MAX_CLUSTER
@@ -910,8 +920,8 @@ int launch_tc(const void* q, const void* k, const void* v, const int* vlen,
     if (err != cudaSuccess) return (int)err;
   }
   CUtensorMap tk, tv;
-  if (!hp::make_map_bshd(&tk, k, HD, Hkv, L, B, TC_KB, C::PCOLS) ||
-      !hp::make_map_bshd(&tv, v, HD, Hkv, L, B, TC_KB, C::PCOLS))
+  if (!hp::make_map_bshd(&tk, k, HD, Hkv, L, R, TC_KB, C::PCOLS) ||
+      !hp::make_map_bshd(&tv, v, HD, Hkv, L, R, TC_KB, C::PCOLS))
     return -2;
   const int bytes = C::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
@@ -934,7 +944,7 @@ int launch_tc(const void* q, const void* k, const void* v, const int* vlen,
   cfg.numAttrs = group == 0 && n_split > 1 ? 1 : 0;
   const float scale_log2 = (float)(LOG2E / std::sqrt((double)HD));
   err = cudaLaunchKernelEx(&cfg, dec_kernel_tc<HD>, tk, tv,
-                           static_cast<const __nv_bfloat16*>(q), vlen,
+                           static_cast<const __nv_bfloat16*>(q), vlen, rows,
                            static_cast<__nv_bfloat16*>(o), scratch, L, Hq,
                            Hkv, chunk, group, scale_log2);
   if (err != cudaSuccess) return (int)err;
@@ -953,35 +963,40 @@ int launch_tc(const void* q, const void* k, const void* v, const int* vlen,
 // tickets (zeroed here, on `stream`); tensor_cores: the body, which the
 // wrapper's decode_instance alone chooses, 1 for dec_kernel_tc (bf16 at hd
 // 64, 96, 128 and 256 only), 0 for dec_kernel (every dtype and head dim).
+// rows: null for k/v of B rows, row b's cache at row b; else (B,) int32
+// cache rows, each in [0, R), of k/v (R,L,Hkv,hd).
 extern "C" int repro_decode_attention(const void* q, const void* k,
                                       const void* v, const void* valid_len,
-                                      void* o, void* scratch, int is_bf16,
-                                      int B, int L, int Hq, int Hkv, int hd,
+                                      void* o, void* scratch,
+                                      const void* rows, int is_bf16, int B,
+                                      int R, int L, int Hq, int Hkv, int hd,
                                       int n_split, int chunk, int group,
                                       int tensor_cores, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* vlen = static_cast<const int*>(valid_len);
+  const int* rw = static_cast<const int*>(rows);
   float* part = static_cast<float*>(scratch);
-  if (n_split < 1 || chunk < 1 || group < 0) return -1;
+  if (n_split < 1 || chunk < 1 || group < 0 || R < 1 || (!rw && R != B))
+    return -1;
   if (tensor_cores) {
     if (!is_bf16) return -1;
     if (hd == 64)
-      return launch_tc<64>(q, k, v, vlen, o, part, B, L, Hq, Hkv, n_split,
-                           chunk, group, s);
+      return launch_tc<64>(q, k, v, vlen, rw, o, part, B, R, L, Hq, Hkv,
+                           n_split, chunk, group, s);
     if (hd == 96)
-      return launch_tc<96>(q, k, v, vlen, o, part, B, L, Hq, Hkv, n_split,
-                           chunk, group, s);
+      return launch_tc<96>(q, k, v, vlen, rw, o, part, B, R, L, Hq, Hkv,
+                           n_split, chunk, group, s);
     if (hd == 128)
-      return launch_tc<128>(q, k, v, vlen, o, part, B, L, Hq, Hkv, n_split,
-                            chunk, group, s);
+      return launch_tc<128>(q, k, v, vlen, rw, o, part, B, R, L, Hq, Hkv,
+                            n_split, chunk, group, s);
     if (hd == 256)
-      return launch_tc<256>(q, k, v, vlen, o, part, B, L, Hq, Hkv, n_split,
-                            chunk, group, s);
+      return launch_tc<256>(q, k, v, vlen, rw, o, part, B, R, L, Hq, Hkv,
+                            n_split, chunk, group, s);
     return -1;
   }
   if (is_bf16)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, vlen, o, part, B, L, Hq,
-                                      Hkv, n_split, chunk, group, s);
-  return dispatch_hd<float>(hd, q, k, v, vlen, o, part, B, L, Hq, Hkv,
+    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, vlen, rw, o, part, B, L,
+                                      Hq, Hkv, n_split, chunk, group, s);
+  return dispatch_hd<float>(hd, q, k, v, vlen, rw, o, part, B, L, Hq, Hkv,
                             n_split, chunk, group, s);
 }

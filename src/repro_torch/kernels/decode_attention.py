@@ -18,12 +18,18 @@ A row with ``valid_len = 0`` attends to nothing and comes out as zeros, as
 the Pallas kernel's does; the JAX oracle ``ref.decode_attention_ref``
 returns the mean of V there instead, and the plain version here follows the
 kernel.
+
+Beyond the Pallas kernel's contract, ``rows`` (B,) int32 lets query row b
+attend over cache row ``rows[b]`` of k/v (R, L, Hkv, hd): a serving step
+decodes against its slab of R slots in place, through the slot ids,
+instead of a gathered copy.  The launch's plan is the one of B rows, so it
+reads the bytes a compact launch reads.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -34,7 +40,7 @@ from .ref import PLAIN_DEVICES, decode_attention_ref
 HEAD_DIMS = (32, 64, 72, 96, 128, 256)
 DTYPES = (torch.bfloat16, torch.float32)
 # pointers, then ints, then the stream: the C launcher's parameters
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 MAX_GROUP_WIDTH = 1024      # G * hd: the kernel's per-lane registers
 SPLIT_TILE = 32             # the kernel's keys per tile
 MAX_SPLIT = 8               # CTAs per cluster that every Hopper card takes
@@ -166,23 +172,30 @@ def decode_plan(B: int, Hq: int, Hkv: int, L: int, hd: int,
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           valid_len: torch.Tensor) -> torch.Tensor:
+                           valid_len: torch.Tensor,
+                           rows: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """The kernel's function in plain PyTorch: q (B,Hq,hd), k/v (B,L,Hkv,hd),
-    valid_len (B,) -> (B,Hq,hd); rows with valid_len <= 0 are zeros."""
+    valid_len (B,) -> (B,Hq,hd); rows with valid_len <= 0 are zeros.  With
+    ``rows`` (B,), k/v are (R,L,Hkv,hd) and row b reads cache row
+    ``rows[b]``."""
+    if rows is not None:
+        k, v = k.index_select(0, rows), v.index_select(0, rows)
     out = decode_attention_ref(q, k, v, valid_len)
     return torch.where((valid_len > 0)[:, None, None], out,
                        torch.zeros((), dtype=out.dtype, device=out.device))
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           valid_len: torch.Tensor) -> None:
+           valid_len: torch.Tensor, rows: Optional[torch.Tensor]) -> None:
     if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"decode_attention wants q (B,Hq,hd) and k/v "
                          f"(B,L,Hkv,hd), got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, Hq, hd = q.shape
     Hkv = k.shape[2]
-    if k.shape[0] != B or k.shape[3] != hd or Hkv == 0 or Hq % Hkv:
+    if (rows is None and k.shape[0] != B) or k.shape[3] != hd or Hkv == 0 \
+            or Hq % Hkv:
         raise ValueError(f"decode_attention: incompatible q "
                          f"{tuple(q.shape)} and k/v {tuple(k.shape)}")
     if hd not in HEAD_DIMS:
@@ -205,20 +218,28 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or valid_len.device != q.device or not valid_len.is_contiguous():
         raise ValueError(f"decode_attention: valid_len must be a contiguous "
                          f"int32 ({B},) tensor on {q.device}")
+    if rows is not None and (rows.shape != (B,) or rows.dtype != torch.int32
+                             or rows.device != q.device
+                             or not rows.is_contiguous()):
+        raise ValueError(f"decode_attention: rows must be a contiguous "
+                         f"int32 ({B},) tensor on {q.device}")
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     valid_len: torch.Tensor) -> torch.Tensor:
-    """q (B,Hq,hd), k/v (B,L,Hkv,hd), valid_len (B,) -> (B,Hq,hd).  CPU
-    and meta tensors: the plain version; CUDA tensors: the kernel."""
+                     valid_len: torch.Tensor,
+                     rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q (B,Hq,hd), k/v (B,L,Hkv,hd), valid_len (B,) -> (B,Hq,hd); with
+    ``rows`` (B,) int32, k/v are (R,L,Hkv,hd) and row b attends over cache
+    row ``rows[b]``, which must lie in [0, R) (the kernel does not check).
+    CPU and meta tensors: the plain version; CUDA tensors: the kernel."""
     if q.device.type in PLAIN_DEVICES:
-        return decode_attention_plain(q, k, v, valid_len)
+        return decode_attention_plain(q, k, v, valid_len, rows)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cpu, meta or cuda "
                          f"tensors, got {q.device}")
-    _check(q, k, v, valid_len)
+    _check(q, k, v, valid_len, rows)
     B, Hq, hd = q.shape
-    L, Hkv = k.shape[1], k.shape[2]
+    R, L, Hkv = k.shape[0], k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -240,8 +261,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  valid_len.data_ptr(), out.data_ptr(),
                  0 if scratch is None else scratch.data_ptr(),
-                 int(q.dtype == torch.bfloat16), B, L, Hq, Hkv, hd, n_split,
-                 chunk, group, int(instance == "tensor_cores"), stream)
+                 0 if rows is None else rows.data_ptr(),
+                 int(q.dtype == torch.bfloat16), B, R, L, Hq, Hkv, hd,
+                 n_split, chunk, group, int(instance == "tensor_cores"),
+                 stream)
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed "
                            f"(error {err}) at q {tuple(q.shape)}, "

@@ -23,9 +23,11 @@ per Mamba group.
 Differences from the JAX package, all deliberate:
 
 * Caches are updated in place (``prefill`` writes the prompt's K/V, conv
-  inputs and SSM state, ``decode_step*`` the new token's) and returned; the
-  serving executor gathers a private copy of its slab rows before each
-  step.
+  inputs and SSM state, ``decode_step*`` the new token's) and returned.
+  ``decode_step_ragged(..., rows=...)`` addresses a full-attention group's
+  K/V in a serving slab itself, through the slot ids
+  (:func:`in_place_leaves`), where the reference's executor gathers a
+  private copy of every leaf's rows and scatters it back.
 * ``prefill`` runs a Mamba group from a zero conv prefix and a null initial
   state, where the JAX package passes a zeroed cache: the same numbers
   without reading zeros.
@@ -58,7 +60,9 @@ Entry points:
   init_cache(cfg, batch, max_len, device, enc_len=None)   -> cache
   prefill(cfg, params, tokens, cache, frontend=None)      -> (logits, cache)
   decode_step(cfg, params, cache, token, t)               -> (logits, cache)
-  decode_step_ragged(cfg, params, cache, token, t)        -> (logits, cache)
+  decode_step_ragged(cfg, params, cache, token, t, rows=None)
+                                                          -> (logits, cache)
+  in_place_leaves(g)                                      -> cache keys
 """
 from __future__ import annotations
 
@@ -73,8 +77,8 @@ from ..kernels import ops as kernel_ops
 from .config import LayerGroup, ModelConfig
 from .layers import (apply_rope, attention_block, gelu_mlp, gqa_attention,
                      mamba2_block, moe_block, rms_norm, swiglu)
-from .spmd import (embed, evenly, gather_data, pick, product, products,
-                   put_slots, ring_fill, rows_and_heads, settled)
+from .spmd import (embed, evenly, gather_data, is_dtensor, pick, product,
+                   products, put_slots, ring_fill, rows_and_heads, settled)
 
 Params = Dict[str, Any]
 f32 = torch.float32
@@ -542,9 +546,18 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, Any],
     return decode_step_ragged(cfg, params, cache, token, tt.expand(B))
 
 
+def in_place_leaves(g: LayerGroup) -> Tuple[str, ...]:
+    """The cache leaves of group ``g`` that ``decode_step_ragged(...,
+    rows=...)`` reads and writes in a slab itself: a full-attention group's
+    K/V, a prefix the decode kernel reads through a row index.  A
+    sliding-window ring (a masked ``gqa_attention`` over its rows), cross
+    K/V and a Mamba group's conv inputs and state stay row-aligned."""
+    return ("k", "v") if g.kind != "mamba" and g.window == 0 else ()
+
+
 def decode_step_ragged(cfg: ModelConfig, params: Params,
                        cache: Dict[str, Any], token: torch.Tensor,
-                       t: torch.Tensor,
+                       t: torch.Tensor, rows: Optional[torch.Tensor] = None,
                        ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """token: (B,1) int; t: (B,) int per-row absolute positions.
 
@@ -552,7 +565,15 @@ def decode_step_ragged(cfg: ModelConfig, params: Params,
     sequence (per-row RoPE angle, cache slot and ``valid_len``), so requests
     at different depths share one step; a Mamba row's state is its own
     whatever its depth.  Returns (logits (B,1,V), cache updated in
-    place)."""
+    place).
+
+    ``rows`` (B,) int32: the leaves :func:`in_place_leaves` names are a
+    slab of R sequences, and row b's live in slab row ``rows[b]``: its new
+    K/V is written at (``rows[b]``, ``t[b]``) and the decode kernel reads
+    its keys there.  Every other leaf holds the B rows in order.  Rows that
+    name one slab row write their K/V to the same position, so they must
+    compute the same K/V (copies of one sequence in a dense model).  On a
+    ``DTensor`` slab ``rows`` raises ``NotImplementedError``."""
     t = t.to(torch.int32)
     h = _embed(cfg, params, token)
     for g, gp, ce in zip(cfg.groups(), params["groups"], cache["layers"]):
@@ -561,17 +582,28 @@ def decode_step_ragged(cfg: ModelConfig, params: Params,
             _store(ce, caches)
         else:
             h = _attn_group_decode(cfg, g, _group_params(params, g, gp), ce,
-                                   h, t)
+                                   h, t, rows if in_place_leaves(g) else None)
     return _unembed(cfg, params, h), cache
 
 
 def _attn_group_decode(cfg: ModelConfig, g: LayerGroup, gp: Params,
                        ce: Dict[str, torch.Tensor], x: torch.Tensor,
-                       t: torch.Tensor) -> torch.Tensor:
-    """One-token step of an attention group at per-row positions ``t``."""
+                       t: torch.Tensor,
+                       slab_rows: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """One-token step of an attention group at per-row positions ``t``;
+    with ``slab_rows``, a full-attention group whose K/V rows are those
+    slab rows (``decode_step_ragged``)."""
     B = x.shape[0]
     W = ce["k"].shape[2]
-    rows = torch.arange(B, device=x.device)
+    kw = {}
+    if slab_rows is None:
+        rows = torch.arange(B, device=x.device)
+    elif is_dtensor(ce["k"]):
+        raise NotImplementedError(f"{cfg.name}: a decode step through slab "
+                                  f"rows on a sharded cache")
+    else:
+        rows, kw = slab_rows.long(), {"rows": slab_rows}
     slot = torch.remainder(t, W).long()
     positions = t[:, None]
     if g.window > 0:
@@ -609,7 +641,7 @@ def _attn_group_decode(cfg: ModelConfig, g: LayerGroup, gp: Params,
                                (q0, lk, lv, vlen),
                                ((0, 1), (0, 2), (0, 2), (0, None)),
                                ((0, 1),), (q0.shape,),
-                               (cfg.n_kv_heads,))[:, None]
+                               (cfg.n_kv_heads,), **kw)[:, None]
         h = h + settled(product(evenly(a, cfg.n_heads, dim=2).reshape(
             B, 1, cfg.n_heads * cfg.hd), lp["wo"]))
         if g.cross_attn:

@@ -37,7 +37,8 @@ captures one join and one step program per bucket at set-up
 their bodies through the same static buffers.  With the tracer on
 (``repro_torch.trace``) each join and step records its span (split into
 stage, launch and sync), its device interval and, for a step, the device
-time of its gather, model and scatter.
+time of its gather, model and scatter and the bytes of slab rows it
+addressed in place and copied.
 """
 from __future__ import annotations
 
@@ -55,8 +56,8 @@ from ..core.batching import pow2_bucket
 from ..core.types import FunctionSpec, Invocation
 from ..device import DeviceLike, resolve_device
 from ..kernels import _build
-from ..models import (decode_step, decode_step_ragged, init_cache,
-                      init_params, prefill)
+from ..models import (decode_step, decode_step_ragged, in_place_leaves,
+                      init_cache, init_params, prefill)
 from ..models.config import ModelConfig
 from .graphs import Program, ProgramSet
 
@@ -371,7 +372,9 @@ class _ContinuousState:
     step's logits until its finiteness is noted, after its clock stops.
     ``joins`` / ``steps`` hold each bucket's compiled join and step (the
     JAX executor's ``join_fns`` / ``step_fns``), ``programs`` all of
-    them."""
+    them.  ``slab_bytes`` gives, per bucket, the bytes of slab rows a step
+    addresses in place and those it copies (``in_place_bytes``,
+    ``copied_bytes``: the tracer's step span carries them)."""
 
     served: ServedModel
     cap: int
@@ -385,6 +388,7 @@ class _ContinuousState:
     programs: Optional[ProgramSet] = None
     joins: Dict[int, Program] = field(default_factory=dict)
     steps: Dict[int, Program] = field(default_factory=dict)
+    slab_bytes: Dict[int, Dict[str, int]] = field(default_factory=dict)
 
 
 class ContinuousTorchExecutor:
@@ -392,14 +396,17 @@ class ContinuousTorchExecutor:
 
     * ``admit(fn, invs, slots)`` — ONE batched prefill of the joiners,
       scattered into their cache slots (plus the first sampled token).
-    * ``step(fn, slots)`` — ONE ragged decode step for every active slot.
+    * ``step(fn, slots)`` — ONE ragged decode step for every active slot,
+      against the slab's full-attention K/V in place (``_step``).
     * ``gen_steps(fn)`` — decode steps a request owes after its prefill.
 
     Batches are padded to power-of-two buckets by repeating the first
-    member's slot, and every row is scattered into its slot.  The copies
+    member's slot, and every row is written into its slot.  The copies
     compute identical values, except in an MoE layer, where they compete
     for expert capacity and one can be dropped: for an MoE model the write
-    that lands in the first slot is unspecified (as in the reference).
+    that lands in the first slot is unspecified (as in the reference), and
+    so, since a step writes K/V in place before it attends, are the K/V
+    its first slot's rows read at the new position.
     Runs on the card unless ``device`` names another; weights come from
     ``init_params`` seeded with ``seed``.
     """
@@ -473,6 +480,7 @@ class ContinuousTorchExecutor:
                 _weakly(st, self._step),
                 {"slot_ids": torch.arange(b, device=dev)},
                 host=("slot_ids",))
+            st.slab_bytes[b] = self._slab_bytes(st, b)
         # compile every bucket up front, as the JAX executor does (the whole
         # bill is set-up, off the serving path; container build, in paper
         # terms): one eager run of each program, then the capture of all
@@ -515,26 +523,52 @@ class ContinuousTorchExecutor:
         return lg
 
     @staticmethod
+    def _slab_bytes(st: _ContinuousState, b: int) -> Dict[str, int]:
+        """The bytes of slab rows a bucket-``b`` step addresses in place
+        (``in_place_leaves``) and those it gathers and scatters (every
+        other leaf), its padding rows included."""
+        out = {"in_place_bytes": 0, "copied_bytes": 0}
+        for g, e in zip(st.served.cfg.groups(), st.slab["layers"]):
+            for key, t in e.items():
+                kind = ("in_place_bytes" if key in in_place_leaves(g)
+                        else "copied_bytes")
+                out[kind] += b * t.numel() // st.cap * t.element_size()
+        return out
+
+    @staticmethod
     def _step(st: _ContinuousState, slot_ids: torch.Tensor) -> torch.Tensor:
         """One ragged decode step of the slab rows ``slot_ids``; returns the
-        logits (b, 1, V)."""
+        logits (b, 1, V).
+
+        A full-attention group's K/V (``in_place_leaves``) are read and
+        written in the slab itself: the step writes each row's new position
+        there and the decode kernel reads each row's keys through the slot
+        ids (as int32, the kernel's row index).  Every other leaf (a Mamba
+        group's conv inputs and state, a sliding window's ring), with the
+        tokens and positions, is gathered into a private copy of the active
+        rows and scattered back.  A padded bucket's rows repeat the first
+        slot: they compute the same K/V as it and write them to the same
+        position, so a dense model's result is the unpadded one."""
         sm, dev = st.served, slot_ids.device
         trace.mark("gather", dev)
-        # a private copy of the active rows: decode updates it in place
-        sub = {"layers": [{key: t.index_select(1, slot_ids)
+        rows, ids = slot_ids.int(), slot_ids.long()
+        kept = [in_place_leaves(g) for g in sm.cfg.groups()]
+        sub = {"layers": [{key: t if key in keep else t.index_select(1, ids)
                            for key, t in e.items()}
-                          for e in st.slab["layers"]]}
-        pos = st.pos.index_select(0, slot_ids)
-        tok = st.tok.index_select(0, slot_ids)
+                          for e, keep in zip(st.slab["layers"], kept)]}
+        pos = st.pos.index_select(0, ids)
+        tok = st.tok.index_select(0, ids)
         trace.mark("model", dev)
-        lg, c2 = decode_step_ragged(sm.cfg, st.params, sub, tok, pos)
+        lg, c2 = decode_step_ragged(sm.cfg, st.params, sub, tok, pos,
+                                    rows=rows)
         ntok = torch.argmax(lg, dim=-1).to(torch.int32)         # (b,1)
         trace.mark("scatter", dev)
-        for se, ce in zip(st.slab["layers"], c2["layers"]):
+        for se, ce, keep in zip(st.slab["layers"], c2["layers"], kept):
             for key in se:
-                se[key].index_copy_(1, slot_ids, ce[key])
-        st.tok.index_copy_(0, slot_ids, ntok)
-        st.pos.index_copy_(0, slot_ids, pos + 1)
+                if key not in keep:
+                    se[key].index_copy_(1, ids, ce[key])
+        st.tok.index_copy_(0, ids, ntok)
+        st.pos.index_copy_(0, ids, pos + 1)
         trace.mark("end", dev)
         return lg
 
@@ -587,21 +621,25 @@ class ContinuousTorchExecutor:
 
     def step(self, fn_name: str, slots: List[int]) -> float:
         st = self._ensure(fn_name)
-        t0 = self._start("executor.step", fn_name, slots)
+        t0 = self._start("executor.step", fn_name, slots, st.slab_bytes)
         b, slot_ids = self._pad_slots(slots)
         dur = self._run(st, st.steps[b], t0, slot_ids=slot_ids)
         self._note_finite(st)
         self.n_steps += 1
         return dur
 
-    def _start(self, name: str, fn_name: str, slots: List[int]) -> float:
+    def _start(self, name: str, fn_name: str, slots: List[int],
+               slab_bytes: Optional[Dict[int, Dict[str, int]]] = None
+               ) -> float:
         """Start a join's or step's clock; with the tracer on, its span and
         the span's stage open there (both ranges open before the clock is
-        read)."""
+        read).  A step's span carries its bucket's ``slab_bytes``."""
         if not trace.ON:
             return time.perf_counter()
-        call = trace.begin(name, fn=fn_name, bucket=pow2_bucket(len(slots)),
-                           slots=tuple(slots))
+        bucket = pow2_bucket(len(slots))
+        call = trace.begin(name, fn=fn_name, bucket=bucket,
+                           slots=tuple(slots),
+                           **(slab_bytes[bucket] if slab_bytes else {}))
         call.start = trace.begin("stage").start
         return call.start
 

@@ -12,6 +12,8 @@ tracer's.  Everything it records stays in memory (:func:`spans`) until
 
   - ``executor.join`` / ``executor.step``: the interval the executor times
     (``admit`` / ``step``'s seconds), with the function, bucket and slots;
+    a step's also with the bytes of slab rows it addressed in place and
+    those it copied (fixed per function and bucket at set-up);
   - ``stage``, ``launch``, ``sync``, which tile their call: the prompt,
     the padding and ``Program.stage`` (the wait on the previous staged
     copies and the pinned host-to-device copies); ``Program.launch`` (the
@@ -65,6 +67,8 @@ class Span:
     device_s: Optional[float] = None   # joins and steps: the device interval
     phases: Dict[str, float] = dataclasses.field(default_factory=dict)
     mirrored: bool = False             # opened as a profiler range too
+    in_place_bytes: int = 0            # steps: slab rows addressed in place
+    copied_bytes: int = 0              # steps: slab rows gathered, scattered
 
 
 def enable(on: bool = True) -> None:

@@ -12,6 +12,10 @@ slows what it watches:
   before its staged copies to the one after its replay;
 * ``slab_copy_ms``: the mean ``gather`` + ``scatter`` of a step, timed by
   the marks inside its graph;
+* ``slab_in_place_pct``: 100 × the bytes of slab rows the steps addressed
+  in place over those plus the bytes they copied (gathered and
+  scattered): 100 where every cache leaf is a full-attention group's K/V,
+  0 for a pure SSM;
 * ``call_idle_pct``: 100 × (1 − Σ device interval / Σ timed seconds) over
   the joins and steps: the device's idle outside each call's device
   interval (the host's staging before the first event, the wake-up after
@@ -79,6 +83,8 @@ def summarize(spans: Sequence[Any], profiled: Sequence[Interval] = ()
     steps = [s for _, s in kept if s.name == "executor.step"]
     timed = sum(s.end - s.start for _, s in kept)
     device = [s.device_s for _, s in kept if s.device_s is not None]
+    in_place = sum(s.in_place_bytes for s in steps)
+    slab = in_place + sum(s.copied_bytes for s in steps)
     out: Dict[str, Any] = {
         "launch_ms": _mean_ms([child[i].get("launch", 0.0)
                                for i, _ in kept]),
@@ -86,6 +92,7 @@ def summarize(spans: Sequence[Any], profiled: Sequence[Interval] = ()
                                     if s.device_s is not None]),
         "slab_copy_ms": _mean_ms([s.phases["gather"] + s.phases["scatter"]
                                   for s in steps if "gather" in s.phases]),
+        "slab_in_place_pct": 100.0 * in_place / slab if slab else None,
         "call_idle_pct": (100.0 * (1.0 - sum(device) / timed)
                           if device and len(device) == len(kept) and timed
                           else None),

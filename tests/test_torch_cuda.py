@@ -1305,3 +1305,121 @@ def test_a_profiled_replay_lies_inside_its_launch_range(cuda):
     trace.clear()
     assert clock["pairs"] == 4 * 4 and clock["unequal"] == []
     assert clock["excess_us"][0] > 0
+
+
+# (B, R, L, Hq, Hkv, hd): a decode of B rows over a cache of R rows, at hd
+# 64 (minicpm-2b), 96 (phi-3), 128 (G 4 and, on the CUDA cores, G 1) and
+# 256 (gemma3-1b, at bucket 2 and at batch 1 over 32k keys, combined by
+# tickets)
+ROWS_CASES = [(4, 8, 544, 36, 36, 64), (8, 8, 544, 36, 36, 64),
+              (4, 8, 544, 32, 32, 96), (4, 8, 544, 32, 8, 128),
+              (3, 6, 300, 8, 8, 128), (2, 5, 544, 4, 1, 256),
+              (1, 3, 32768, 4, 1, 256)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", ROWS_CASES, ids=str)
+def test_decode_attention_through_rows_equals_the_gathered_cache(cuda, case,
+                                                                 dtype):
+    """``rows`` on both bodies (bf16 on the tensor cores where
+    ``decode_instance`` says so, float32 and bf16 hd 128 at G 1 on the
+    CUDA cores): query row b over cache row rows[b] of R > B rows equals
+    the same launch on ``k.index_select(0, rows)`` bit for bit, with rows
+    permuted, a row repeated and a row at valid_len 0 (zeros)."""
+    B, R, L, Hq, Hkv, hd = case
+    q = torch.randn(B, Hq, hd, generator=cuda, device="cuda").to(dtype)
+    k = torch.randn(R, L, Hkv, hd, generator=cuda, device="cuda").to(dtype)
+    v = torch.randn(R, L, Hkv, hd, generator=cuda, device="cuda").to(dtype)
+    perm = torch.randperm(R, generator=cuda, device="cuda")[:B]
+    if B > 1:
+        perm[-1] = perm[0]
+    rows = perm.to(torch.int32).contiguous()
+    vlen = torch.randint(1, L + 1, (B,), generator=cuda, device="cuda",
+                         dtype=torch.int32)
+    if B > 2:
+        vlen[1] = 0
+    got = decode_attention(q, k, v, vlen, rows=rows)
+    ids = rows.long()
+    want = decode_attention(q, k.index_select(0, ids).contiguous(),
+                            v.index_select(0, ids).contiguous(), vlen)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if B > 2:
+        assert got[1].abs().max().item() == 0.0
+    _close_rows(got, decode_attention_plain(q, k, v, vlen, rows), dtype)
+    with pytest.raises(ValueError, match="rows"):
+        decode_attention(q, k, v, vlen, rows=ids)
+
+
+def _gathered_step(st, ids):
+    """The step as the reference's executor takes it (every slab leaf's
+    rows gathered, decoded into, scattered back) on ``st``'s state."""
+    ids = ids.long()
+    sub = {"layers": [{k: t.index_select(1, ids) for k, t in e.items()}
+                      for e in st.slab["layers"]]}
+    pos, tok = st.pos.index_select(0, ids), st.tok.index_select(0, ids)
+    lg, c = decode_step_ragged(st.served.cfg, st.params, sub, tok, pos)
+    for se, ce in zip(st.slab["layers"], c["layers"]):
+        for k in se:
+            se[k].index_copy_(1, ids, ce[k])
+    st.tok.index_copy_(0, ids, torch.argmax(lg, -1).to(torch.int32))
+    st.pos.index_copy_(0, ids, pos + 1)
+    return lg
+
+
+@pytest.mark.parametrize("arch", ["minicpm-2b", "gemma3-1b", "zamba2-1.2b"])
+def test_a_replayed_step_through_slot_ids_matches_the_eager_steps(cuda,
+                                                                  arch):
+    """The continuous executor's step on the card, decoding against the
+    slab's full-attention K/V in place: its body run eagerly equals the
+    gather-step-scatter step bit for bit (logits, slab, tokens,
+    positions), and its replayed graph equals that eager body, bit for bit
+    or within TOL with the same greedy tokens (``chip_smoke.replay_parity``'s
+    rule), at buckets 4 (padded), 1 and 8 (padded)."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.serving import ServedModel
+    from repro_torch.serving.executor import ContinuousTorchExecutor
+    cfg = get_config(arch, reduced=True)
+    ex = ContinuousTorchExecutor(
+        {"gen": ServedModel(cfg, prompt_len=48, gen_len=8)}, max_batch=8,
+        device="cuda")
+    st = ex._ensure("gen")
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (8, 48))
+    ex._admit_tokens("gen", toks, list(range(8)))
+    ex.step("gen", list(range(8)))
+
+    def snapshot():
+        return dataclasses.replace(
+            st, slab={"layers": [{k: t.clone() for k, t in e.items()}
+                                 for e in st.slab["layers"]]},
+            tok=st.tok.clone(), pos=st.pos.clone())
+
+    tol = TOL[cfg.dtype()]
+    for slots in ([6, 1, 3], [2], [0, 2, 4, 6, 7]):
+        b, padded = ex._pad_slots(slots)
+        ids = torch.tensor(padded, dtype=torch.int32, device="cuda")
+        eager, gathered = snapshot(), snapshot()
+        lg = ContinuousTorchExecutor._step(eager, ids)
+        lg_gathered = _gathered_step(gathered, ids)
+        ex.step("gen", slots)
+        torch.cuda.synchronize()
+        assert torch.equal(lg, lg_gathered)
+        assert torch.equal(eager.tok, gathered.tok)
+        assert torch.equal(eager.pos, gathered.pos)
+        for e, g in zip(eager.slab["layers"], gathered.slab["layers"]):
+            for k in e:
+                assert torch.equal(e[k], g[k]), k
+        replayed = st.steps[b].outputs
+        assert torch.equal(st.pos, eager.pos)
+        if not torch.equal(replayed, lg):
+            torch.testing.assert_close(replayed.float(), lg.float(),
+                                       rtol=tol, atol=tol)
+            top = lg.float().topk(2, dim=-1).values
+            sure = (top[..., 0] - top[..., 1]) > tol + tol * top[..., 0].abs()
+            assert torch.equal(replayed.argmax(-1)[sure], lg.argmax(-1)[sure])
+        for e, g in zip(st.slab["layers"], eager.slab["layers"]):
+            for k in e:
+                torch.testing.assert_close(e[k].float(), g[k].float(),
+                                           rtol=tol, atol=tol)

@@ -51,8 +51,33 @@ def test_summarize_reads_the_calls_outside_the_profiled_slices():
 def test_summarize_reads_none_with_no_call_to_read(spans, profiled):
     got = summarize(spans, profiled)
     assert got == dict(launch_ms=None, step_device_ms=None,
-                       slab_copy_ms=None, call_idle_pct=None, join=None,
-                       step=None)
+                       slab_copy_ms=None, slab_in_place_pct=None,
+                       call_idle_pct=None, join=None, step=None)
+
+
+def _step(t0, in_place, copied):
+    return Span("executor.step", t0, t0 + 0.01, device_s=0.009,
+                in_place_bytes=in_place, copied_bytes=copied)
+
+
+@pytest.mark.parametrize("steps, want", [
+    ([(4096, 0), (8192, 0)], 100.0),            # every leaf full attention
+    ([(0, 512), (0, 1024)], 0.0),               # a pure SSM
+    ([(3000, 1000), (6000, 2000)], 75.0),       # a hybrid
+    ([(3000, 1000), (0, 0)], 75.0),             # a span without bytes
+], ids=["in place", "copied", "mixed", "no bytes"])
+def test_slab_in_place_pct_weighs_the_steps_by_their_bytes(steps, want):
+    spans = [_step(0.1 * i, a, c) for i, (a, c) in enumerate(steps)]
+    # a join carries no slab bytes, and a profiled step is left out
+    spans.append(Span("executor.join", 1.0, 1.01, device_s=0.009))
+    spans.append(_step(2.0, 0, 10 ** 6))
+    got = summarize(spans, [(1.99, 2.02)])
+    assert got["slab_in_place_pct"] == pytest.approx(want)
+
+
+def test_slab_in_place_pct_reads_none_without_steps():
+    spans = [Span("executor.join", 0.0, 0.01, device_s=0.009)]
+    assert summarize(spans)["slab_in_place_pct"] is None
 
 
 def test_profile_readings_split_the_idle_between_calls_and_the_rest():
