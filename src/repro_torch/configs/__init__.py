@@ -3,15 +3,22 @@
 Value copies of ``src/repro/configs/*.py`` (that package imports jax through
 ``repro.models.config``).  Every entry cites its source in the module
 docstring of its config file.
+
+``ARCH_IDS`` are the configs with a twin in the JAX package, which tests
+hold the port to.  ``PORT_ONLY_IDS`` are configs the port alone runs, whose
+architecture the JAX package's ``ModelConfig`` cannot state (granite-4.0-h's
+per-layer pattern, NoPE and muP multipliers); ``get_config`` resolves both,
+``all_configs`` the JAX twins only.  A port-only config is held to a plain
+reference instead (``portbench/reference/``).
 """
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
 from ..models.config import ModelConfig
-from . import (gemma3_1b, llama4_scout_17b, mamba2_370m, minicpm_2b,
-               minitron_8b, mixtral_8x22b, phi3_mini_3p8b, phi3_vision_4p2b,
-               whisper_tiny, zamba2_1p2b)
+from . import (gemma3_1b, granite_4p0_h_micro, llama4_scout_17b,
+               mamba2_370m, minicpm_2b, minitron_8b, mixtral_8x22b,
+               phi3_mini_3p8b, phi3_vision_4p2b, whisper_tiny, zamba2_1p2b)
 
 _MODULES = {
     "minicpm-2b": minicpm_2b,
@@ -26,13 +33,19 @@ _MODULES = {
     "mixtral-8x22b": mixtral_8x22b,
 }
 
+_PORT_ONLY = {
+    "granite-4.0-h-micro": granite_4p0_h_micro,
+}
+
 ARCH_IDS = tuple(_MODULES)
+PORT_ONLY_IDS = tuple(_PORT_ONLY)
 
 
 def get_config(arch: str, reduced: bool = False) -> ModelConfig:
-    if arch not in _MODULES:
-        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULES)}")
-    m = _MODULES[arch]
+    m = _MODULES.get(arch) or _PORT_ONLY.get(arch)
+    if m is None:
+        raise KeyError(f"unknown arch {arch!r}; known: "
+                       f"{sorted(_MODULES) + sorted(_PORT_ONLY)}")
     return m.REDUCED if reduced else m.CONFIG
 
 

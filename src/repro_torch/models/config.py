@@ -9,6 +9,13 @@ A model is a stack of *layer groups*.  Each group is homogeneous (same kind,
 same shapes), and its parameters are stacked on a leading layer axis when it
 has more than one layer, exactly as in the JAX package, so parameter trees
 cross between the two packages without restacking.
+
+Fields the JAX package's config lacks (``PORT_ONLY``), for the configs that
+have no JAX twin (``configs.PORT_ONLY_IDS``): a published per-layer pattern
+(``layer_types``, a Mamba2 + attention hybrid whose every layer carries its
+own weights and MLP), NoPE attention and the muP multipliers.  At their
+defaults they add no operation, so every config with a JAX twin runs as it
+did.
 """
 from __future__ import annotations
 
@@ -19,6 +26,10 @@ import torch
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
+# the fields of ModelConfig and LayerGroup that the JAX package's lack
+PORT_ONLY = ("layer_types", "nope", "attention_multiplier",
+             "embedding_multiplier", "residual_multiplier", "logits_scaling")
+PORT_ONLY_GROUP = ("mlp",)
 
 
 @dataclass(frozen=True)
@@ -30,6 +41,26 @@ class LayerGroup:
     window: int = 0             # 0 = full causal attention; >0 = sliding window
     cross_attn: bool = False    # decoder layers attending to encoder output
     moe: bool = False           # FFN is a mixture of experts
+    mlp: bool = False           # mamba: the layer has a norm + MLP after
+                                # its mixer (granite-4.0-h); attn always has
+
+
+def _pattern_groups(layer_types: Tuple[str, ...]) -> Tuple[LayerGroup, ...]:
+    """One group per run of a kind in a published pattern: a run of Mamba
+    layers is one group (each layer its own weights and MLP), and each
+    attention layer a group of one, with its own weights."""
+    gs = []
+    for kind in layer_types:
+        if kind == "mamba":
+            if gs and gs[-1].kind == "mamba":
+                gs[-1] = replace(gs[-1], count=gs[-1].count + 1)
+            else:
+                gs.append(LayerGroup("mamba", 1, mlp=True))
+        elif kind == "attention":
+            gs.append(LayerGroup("attn", 1))
+        else:
+            raise ValueError(f"unknown layer type {kind!r}")
+    return tuple(gs)
 
 
 @dataclass(frozen=True)
@@ -65,6 +96,18 @@ class ModelConfig:
 
     # -- hybrid (zamba2): one shared attention block every k mamba layers ----
     shared_attn_every: int = 0
+
+    # -- hybrid with a published per-layer pattern (granite-4.0-h) -----------
+    # "mamba" | "attention" per layer; each run of one kind is a group, every
+    # layer with its own weights and a SwiGLU MLP after its mixer
+    layer_types: Tuple[str, ...] = ()
+
+    # -- attention and muP scalars (0 / 1 / False: the default path) ---------
+    nope: bool = False              # no rotary embedding (NoPE)
+    attention_multiplier: float = 0.0   # softmax scale; 0 -> 1/sqrt(hd)
+    embedding_multiplier: float = 0.0   # embedding scale; 0 -> sqrt(d)
+    residual_multiplier: float = 1.0    # each mixer / MLP branch's scale
+    logits_scaling: float = 1.0         # logits divided by it
 
     # -- encoder-decoder (whisper) -------------------------------------------
     n_enc_layers: int = 0
@@ -113,6 +156,17 @@ class ModelConfig:
     def d_inner(self) -> int:
         return self.ssm_expand * self.d_model
 
+    @property
+    def layer_type_list(self) -> list:
+        """``layer_types`` as a list, as a published ``config.json`` has
+        it."""
+        return list(self.layer_types)
+
+    @property
+    def position_embedding_type(self) -> str:
+        """As a published ``config.json`` names it: ``nope`` or ``rope``."""
+        return "nope" if self.nope else "rope"
+
     def dtype(self) -> torch.dtype:
         return _DTYPES[self.compute_dtype]
 
@@ -125,6 +179,8 @@ class ModelConfig:
         if self.override_groups is not None:
             return self.override_groups
         moe = self.n_experts > 0
+        if self.layer_types:
+            return _pattern_groups(self.layer_types)
         if self.arch_type == "ssm":
             return (LayerGroup("mamba", self.n_layers),)
         if self.arch_type == "hybrid":
@@ -202,6 +258,8 @@ class ModelConfig:
                     total += di * d                      # out_proj
                     total += 3 * nh                      # A, dt_bias, D
                     total += d                           # norm
+                    if g.mlp:
+                        total += 3 * d * self.d_ff + d   # swiglu, norm
         # encoder stack
         if self.n_enc_layers:
             qkv = 4 * d * (self.n_heads * self.hd)

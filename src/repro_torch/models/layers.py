@@ -80,6 +80,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def query_scale(attention_multiplier: float, hd: int) -> float:
+    """The factor on q that turns the kernels' softmax scale 1/sqrt(hd) into
+    ``attention_multiplier`` (1 where that is 0, the default).  granite's
+    1/64 at hd 64 gives 1/8, a power of two: exact in bf16."""
+    return attention_multiplier * math.sqrt(hd) if attention_multiplier \
+        else 1.0
+
+
 def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   mask: Optional[torch.Tensor]) -> torch.Tensor:
     """q: (B,Sq,Hq,hd)  k,v: (B,Sk,Hkv,hd)  mask: broadcastable to
@@ -103,24 +111,31 @@ def attention_block(x: torch.Tensor, p: Params, *, n_heads: int,
                     kv_override: Optional[Tuple[torch.Tensor,
                                                 torch.Tensor]] = None,
                     causal: bool = True, window: int = 0,
+                    rope: bool = True, q_scale: float = 1.0,
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Self- (or cross-) attention sublayer body (no residual / norm).
     Returns (out, k, v) so callers can stash K/V into a cache.
     ``kv_override`` supplies externally computed K/V (cross-attention): then
-    RoPE rotates q alone, as in the JAX package.  The attention itself is
-    ``kernels.ops.attention`` with the structural causal/window
+    RoPE rotates q alone, as in the JAX package.  ``rope=False`` rotates
+    nothing (NoPE); ``q_scale`` multiplies q, so that the kernels' softmax
+    scale 1/sqrt(hd) becomes another (:func:`query_scale`).  The attention
+    itself is ``kernels.ops.attention`` with the structural causal/window
     description, as the JAX package's kernel path passes it."""
     B, S, _ = x.shape
     if kv_override is None:
         q, k, v = products(x, p["wq"], p["wk"], p["wv"])
         k = evenly(k, n_kv_heads).reshape(B, S, n_kv_heads, hd)
         v = evenly(v, n_kv_heads).reshape(B, S, n_kv_heads, hd)
-        k = apply_rope(k, positions, rope_theta)
+        if rope:
+            k = apply_rope(k, positions, rope_theta)
     else:
         q = product(x, p["wq"])
         k, v = kv_override
     q = evenly(q, n_heads).reshape(B, S, n_heads, hd)
-    q = apply_rope(q, positions, rope_theta)
+    if rope:
+        q = apply_rope(q, positions, rope_theta)
+    if q_scale != 1.0:
+        q = q * q_scale
     out = rows_and_heads(kernel_ops.attention, (q, k, v), ((0, 2),) * 3,
                          ((0, 2),), (q.shape,), (k.shape[2],),
                          causal=causal, window=window)
@@ -329,14 +344,16 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 def mamba2_block(x: torch.Tensor, p: Params, *, n_heads: int, head_dim: int,
                  d_state: int, d_conv: int, chunk: int,
                  cache: Optional[Dict[str, torch.Tensor]] = None,
+                 norm_eps: float = 1e-6,
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full Mamba2 mixer (in_proj -> conv -> SSD -> gated norm -> out_proj).
 
     x: (B,S,d).  With ``cache`` ('conv' (B,d_conv-1,d_xBC) and 'state'
     (B,H,P,N)) the conv continues from the cached inputs and the scan from
     the cached state; a one-token call is the recurrent step.  Without it
-    the conv starts from zeros and the scan from a zero state.  Returns
-    (out (B,S,d), new cache {'conv', 'state'})."""
+    the conv starts from zeros and the scan from a zero state.  ``norm_eps``
+    is the gated norm's.  Returns (out (B,S,d), new cache {'conv',
+    'state'})."""
     B, S, _ = x.shape
     H, P, N = n_heads, head_dim, d_state
     di = H * P
@@ -374,7 +391,7 @@ def mamba2_block(x: torch.Tensor, p: Params, *, n_heads: int, head_dim: int,
             Bm.contiguous(), Cm.contiguous(), chunk=chunk, init_state=init)
     y = y + xh * p["D"].to(xh.dtype)[None, None, :, None]
     y = y.reshape(B, S, di)
-    # gated RMSNorm (mamba2 style), at rms_norm's default eps as in JAX
-    y = rms_norm(y * F.silu(z), p["norm_w"])
+    # gated RMSNorm (mamba2 style)
+    y = rms_norm(y * F.silu(z), p["norm_w"], norm_eps)
     return settled(product(y, p["out_proj"])), {"conv": new_conv,
                                                  "state": new_state}

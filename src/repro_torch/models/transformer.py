@@ -72,11 +72,12 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .. import trace
 from ..device import DeviceLike, resolve_device
 from ..kernels import ops as kernel_ops
 from .config import LayerGroup, ModelConfig
 from .layers import (apply_rope, attention_block, gelu_mlp, gqa_attention,
-                     mamba2_block, moe_block, rms_norm, swiglu)
+                     mamba2_block, moe_block, query_scale, rms_norm, swiglu)
 from .spmd import (embed, evenly, gather_data, is_dtensor, pick, product,
                    products, put_slots, ring_fill, rows_and_heads, settled)
 
@@ -118,17 +119,25 @@ def _attn_layer_shapes(cfg: ModelConfig, g: LayerGroup) -> Dict[str, tuple]:
     return s
 
 
-def _mamba_layer_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+def _mamba_layer_shapes(cfg: ModelConfig, g: LayerGroup) -> Dict[str, tuple]:
+    """A Mamba layer's leaves; with ``g.mlp`` also the norm ``ln2`` and the
+    MLP after the mixer."""
     d, di, N = cfg.d_model, cfg.d_inner, cfg.ssm_state
     H = cfg.n_ssm_heads
     dxbc = di + 2 * N
-    return {
+    s = {
         "ln": (d,),
         "in_proj": (d, 2 * di + 2 * N + H),
         "conv_w": (cfg.ssm_conv, dxbc), "conv_b": (dxbc,),
         "dt_bias": (H,), "A_log": (H,), "D": (H,),
         "norm_w": (di,), "out_proj": (di, d),
     }
+    if g.mlp:
+        f = cfg.d_ff
+        s.update({"ln2": (d,), "w_up": (d, f), "w_down": (f, d)})
+        if cfg.mlp == "swiglu":
+            s["w_gate"] = (d, f)
+    return s
 
 
 def _init_layer(gen, shapes: Dict[str, tuple], count: int, dtype,
@@ -186,8 +195,8 @@ def init_params(cfg: ModelConfig, seed: int = 0,
                     dtype, dev)
             glist.append({})        # placeholder: runs params["shared_attn"]
         elif g.kind == "mamba":
-            glist.append(_init_layer(gen, _mamba_layer_shapes(cfg), g.count,
-                                     dtype, dev))
+            glist.append(_init_layer(gen, _mamba_layer_shapes(cfg, g),
+                                     g.count, dtype, dev))
         else:
             glist.append(_init_layer(gen, _attn_layer_shapes(cfg, g),
                                      g.count, dtype, dev))
@@ -236,6 +245,15 @@ def _remat(cfg: ModelConfig, body, h: torch.Tensor, lp: Params, *args):
     return body(h, lp, *args)
 
 
+def _residual(cfg: ModelConfig, h: torch.Tensor, y: torch.Tensor
+              ) -> torch.Tensor:
+    """``h`` plus a mixer's or MLP's output ``y``, scaled by the config's
+    ``residual_multiplier`` where it is not 1."""
+    if cfg.residual_multiplier != 1.0:
+        y = y * cfg.residual_multiplier
+    return h + y
+
+
 def _ffn(cfg: ModelConfig, g: LayerGroup, p: Params, x: torch.Tensor
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The layer's FFN and its auxiliary loss (zero unless MoE)."""
@@ -274,8 +292,9 @@ def _attn_group_fwd(cfg: ModelConfig, g: LayerGroup, gp: Params,
             rms_norm(h, lp["ln1"], cfg.norm_eps), lp,
             n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, hd=cfg.hd,
             positions=positions, rope_theta=cfg.rope_theta,
-            causal=True, window=g.window)
-        h = h + a
+            causal=True, window=g.window, rope=not cfg.nope,
+            q_scale=query_scale(cfg.attention_multiplier, cfg.hd))
+        h = _residual(cfg, h, a)
         rows = {"k": k, "v": v}
         if g.cross_attn:
             rows["xk"], rows["xv"] = _enc_kv(cfg, lp, enc_out)
@@ -288,7 +307,7 @@ def _attn_group_fwd(cfg: ModelConfig, g: LayerGroup, gp: Params,
                 window=0)
             h = h + xa
         f, a_loss = _ffn(cfg, g, lp, rms_norm(h, lp["ln2"], cfg.norm_eps))
-        return h + f, a_loss, rows
+        return _residual(cfg, h, f), a_loss, rows
 
     kv = []
     h = x
@@ -300,22 +319,28 @@ def _attn_group_fwd(cfg: ModelConfig, g: LayerGroup, gp: Params,
     return h, aux, kv
 
 
-def _mamba_group_fwd(cfg: ModelConfig, gp: Params, x: torch.Tensor,
+def _mamba_group_fwd(cfg: ModelConfig, g: LayerGroup, gp: Params,
+                     x: torch.Tensor,
                      ce: Optional[Dict[str, torch.Tensor]] = None,
                      ) -> Tuple[torch.Tensor,
                                 List[Dict[str, torch.Tensor]]]:
     """Run a Mamba group over x (B,S,d): from a zero conv prefix and state
     without ``ce``, else from layer i's ``ce["conv"][i]`` and
-    ``ce["state"][i]``.  Returns the hidden state and each layer's new
-    {'conv', 'state'}."""
+    ``ce["state"][i]``; with ``g.mlp`` each mixer is followed by a norm and
+    the MLP.  Returns the hidden state and each layer's new {'conv',
+    'state'}."""
 
     def body(h, lp, lc):
         y, nc = mamba2_block(
             rms_norm(h, lp["ln"], cfg.norm_eps), lp,
             n_heads=cfg.n_ssm_heads, head_dim=cfg.ssm_head_dim,
             d_state=cfg.ssm_state, d_conv=cfg.ssm_conv, chunk=cfg.ssm_chunk,
-            cache=lc)
-        return h + y, nc
+            cache=lc, norm_eps=cfg.norm_eps)
+        h = _residual(cfg, h, y)
+        if g.mlp:
+            f, _ = _ffn(cfg, g, lp, rms_norm(h, lp["ln2"], cfg.norm_eps))
+            h = _residual(cfg, h, f)
+        return h, nc
 
     caches = []
     h = x
@@ -342,13 +367,14 @@ def _store(ce: Dict[str, torch.Tensor],
 
 def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
            frontend: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Gather, cast to the compute dtype, then scale by sqrt(d) in that
-    dtype: JAX rounds the weakly typed scalar to the array's dtype first.
-    The scale is filled on the device (no copy from the host, which a
-    captured graph cannot hold).  A frontend model's (B, F, d) embeddings
-    go ahead of the text."""
+    """Gather, cast to the compute dtype, then scale by sqrt(d) (or the
+    config's ``embedding_multiplier``) in that dtype: JAX rounds the weakly
+    typed scalar to the array's dtype first.  The scale is filled on the
+    device (no copy from the host, which a captured graph cannot hold).  A
+    frontend model's (B, F, d) embeddings go ahead of the text."""
     h = embed(gather_data(params["embed"]), tokens).to(cfg.dtype())
-    scale = torch.full((), math.sqrt(cfg.d_model), dtype=h.dtype,
+    scale = torch.full((), cfg.embedding_multiplier
+                       or math.sqrt(cfg.d_model), dtype=h.dtype,
                        device=h.device)
     h = h * scale
     if frontend is not None and cfg.frontend and cfg.arch_type != "encdec":
@@ -359,11 +385,16 @@ def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 def _unembed(cfg: ModelConfig, params: Params,
              h: torch.Tensor) -> torch.Tensor:
     """Logits over all ``vocab_padded`` columns (greedy argmax ranges over
-    the padded columns too, as in the JAX package)."""
+    the padded columns too, as in the JAX package), divided by the config's
+    ``logits_scaling`` where it is not 1."""
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
-        return product(h, gather_data(params["embed"]).T.to(h.dtype))
-    return product(h, gather_data(params["lm_head"]).to(h.dtype))
+        logits = product(h, gather_data(params["embed"]).T.to(h.dtype))
+    else:
+        logits = product(h, gather_data(params["lm_head"]).to(h.dtype))
+    if cfg.logits_scaling != 1.0:
+        logits = logits / cfg.logits_scaling
+    return logits
 
 
 def _encode(cfg: ModelConfig, params: Params,
@@ -418,7 +449,7 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     aux = torch.zeros((), dtype=f32, device=h.device)
     for g, gp in zip(cfg.groups(), params["groups"]):
         if g.kind == "mamba":
-            h, _ = _mamba_group_fwd(cfg, gp, h)
+            h, _ = _mamba_group_fwd(cfg, g, gp, h)
         else:
             h, a, _ = _attn_group_fwd(cfg, g, _group_params(params, g, gp),
                                       h, positions, enc_out)
@@ -509,7 +540,7 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     positions = torch.arange(S, device=h.device)[None, :]
     for g, gp, ce in zip(cfg.groups(), params["groups"], cache["layers"]):
         if g.kind == "mamba":
-            h, caches = _mamba_group_fwd(cfg, gp, h)
+            h, caches = _mamba_group_fwd(cfg, g, gp, h)
             _store(ce, caches)
             continue
         h, _, kv = _attn_group_fwd(cfg, g, _group_params(params, g, gp), h,
@@ -567,6 +598,10 @@ def decode_step_ragged(cfg: ModelConfig, params: Params,
     whatever its depth.  Returns (logits (B,1,V), cache updated in
     place).
 
+    With the tracer on (``trace.mark``), each group's start is marked by its
+    kind (``mamba`` or ``attn``) and their end as ``model``, the phase that
+    the embedding, the unembedding and what the caller does next fall in.
+
     ``rows`` (B,) int32: the leaves :func:`in_place_leaves` names are a
     slab of R sequences, and row b's live in slab row ``rows[b]``: its new
     K/V is written at (``rows[b]``, ``t[b]``) and the decode kernel reads
@@ -575,14 +610,18 @@ def decode_step_ragged(cfg: ModelConfig, params: Params,
     compute the same K/V (copies of one sequence in a dense model).  On a
     ``DTensor`` slab ``rows`` raises ``NotImplementedError``."""
     t = t.to(torch.int32)
+    dev = token.device
     h = _embed(cfg, params, token)
     for g, gp, ce in zip(cfg.groups(), params["groups"], cache["layers"]):
         if g.kind == "mamba":
-            h, caches = _mamba_group_fwd(cfg, gp, h, ce)
+            trace.mark("mamba", dev)
+            h, caches = _mamba_group_fwd(cfg, g, gp, h, ce)
             _store(ce, caches)
         else:
+            trace.mark("attn", dev)
             h = _attn_group_decode(cfg, g, _group_params(params, g, gp), ce,
                                    h, t, rows if in_place_leaves(g) else None)
+    trace.mark("model", dev)
     return _unembed(cfg, params, h), cache
 
 
@@ -616,6 +655,7 @@ def _attn_group_decode(cfg: ModelConfig, g: LayerGroup, gp: Params,
         # a full-attention cache holds slots [0, t] as a prefix, so the
         # flash-decoding kernel attends to valid_len = t + 1 keys
         vlen = (t + 1).to(torch.int32).contiguous()
+    q_scale = query_scale(cfg.attention_multiplier, cfg.hd)
     h = x
     for i, lp in enumerate(_layer_params(gp)):
         lk, lv = ce["k"][i], ce["v"][i]
@@ -626,8 +666,11 @@ def _attn_group_decode(cfg: ModelConfig, g: LayerGroup, gp: Params,
                                                 cfg.hd)
         v1 = evenly(v1, cfg.n_kv_heads).reshape(B, 1, cfg.n_kv_heads,
                                                 cfg.hd)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k1 = apply_rope(k1, positions, cfg.rope_theta)
+        if not cfg.nope:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k1 = apply_rope(k1, positions, cfg.rope_theta)
+        if q_scale != 1.0:
+            q = q * q_scale
         # write the new K/V at (row, t mod W) before attending, in place
         put_slots(lk, rows, slot, k1[:, 0].to(lk.dtype))
         put_slots(lv, rows, slot, v1[:, 0].to(lv.dtype))
@@ -642,8 +685,9 @@ def _attn_group_decode(cfg: ModelConfig, g: LayerGroup, gp: Params,
                                ((0, 1), (0, 2), (0, 2), (0, None)),
                                ((0, 1),), (q0.shape,),
                                (cfg.n_kv_heads,), **kw)[:, None]
-        h = h + settled(product(evenly(a, cfg.n_heads, dim=2).reshape(
-            B, 1, cfg.n_heads * cfg.hd), lp["wo"]))
+        h = _residual(cfg, h, settled(product(evenly(a, cfg.n_heads,
+                                                     dim=2).reshape(
+            B, 1, cfg.n_heads * cfg.hd), lp["wo"])))
         if g.cross_attn:
             # the flash kernel with one non-causal query, q without RoPE,
             # as in the JAX package's decode
@@ -657,5 +701,5 @@ def _attn_group_decode(cfg: ModelConfig, g: LayerGroup, gp: Params,
             h = h + settled(product(evenly(ax, cfg.n_heads, dim=2).reshape(
                 B, 1, cfg.n_heads * cfg.hd), lp["xwo"]))
         f, _ = _ffn(cfg, g, lp, rms_norm(h, lp["ln2"], cfg.norm_eps))
-        h = h + f
+        h = _residual(cfg, h, f)
     return h

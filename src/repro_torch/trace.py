@@ -27,7 +27,10 @@ tracer's.  Everything it records stays in memory (:func:`spans`) until
   recorded into the graph, so that every replay records it again; off
   the card, where the body runs at every call, a mark takes the host's
   clock.  The executor reads both after the call's clock stops
-  (``Span.phases``).
+  (``Span.phases``).  A step's marks are the executor's ``gather``,
+  ``model``, ``scatter`` and ``end``, and inside ``model`` the decode
+  step's: each layer group's start by its kind (``mamba``, ``attn``), then
+  ``model`` again after the last group.
 
 * **The profiler's clock.**  While a ``torch.profiler`` profile records,
   each span is also opened as a range of its name (``record_function``'s
@@ -164,6 +167,11 @@ def collecting() -> Iterator[List[Tuple[str, Any]]]:
 
 
 def phases(marks: List[Tuple[str, Any]]) -> Dict[str, float]:
-    """Seconds from each mark to the next, by the first one's name; the
-    last mark only closes the last phase."""
-    return {n: between(a, b) for (n, a), (_, b) in zip(marks, marks[1:])}
+    """Seconds from each mark to the next, by the first one's name, summed
+    over the phases that share a name (a model's groups of one kind), in
+    the order of each name's first phase; the last mark only closes the
+    last phase."""
+    out: Dict[str, float] = {}
+    for (n, a), (_, b) in zip(marks, marks[1:]):
+        out[n] = out.get(n, 0.0) + between(a, b)
+    return out

@@ -12,6 +12,10 @@ slows what it watches:
   before its staged copies to the one after its replay;
 * ``slab_copy_ms``: the mean ``gather`` + ``scatter`` of a step, timed by
   the marks inside its graph;
+* ``step_mamba_ms`` / ``step_attn_ms``: the mean over steps of the device
+  time of a step's Mamba groups / attention groups, summed over its groups
+  (the ``mamba`` / ``attn`` marks inside the model); None where no step
+  has such a group;
 * ``slab_in_place_pct``: 100 × the bytes of slab rows the steps addressed
   in place over those plus the bytes they copied (gathered and
   scattered): 100 where every cache leaf is a full-attention group's K/V,
@@ -92,6 +96,10 @@ def summarize(spans: Sequence[Any], profiled: Sequence[Interval] = ()
                                     if s.device_s is not None]),
         "slab_copy_ms": _mean_ms([s.phases["gather"] + s.phases["scatter"]
                                   for s in steps if "gather" in s.phases]),
+        "step_mamba_ms": _mean_ms([s.phases["mamba"] for s in steps
+                                   if "mamba" in s.phases]),
+        "step_attn_ms": _mean_ms([s.phases["attn"] for s in steps
+                                  if "attn" in s.phases]),
         "slab_in_place_pct": 100.0 * in_place / slab if slab else None,
         "call_idle_pct": (100.0 * (1.0 - sum(device) / timed)
                           if device and len(device) == len(kept) and timed

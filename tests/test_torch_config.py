@@ -13,6 +13,8 @@ from repro.configs import get_config as j_get_config  # noqa: E402
 from repro.models import init_params as j_init_params  # noqa: E402
 from repro_torch.configs import ARCH_IDS, INPUT_SHAPES, get_config  # noqa: E402
 from repro_torch.models import init_params  # noqa: E402
+from repro_torch.models.config import (PORT_ONLY, PORT_ONLY_GROUP,  # noqa: E402
+                                       LayerGroup, ModelConfig)
 
 CASES = [(a, r) for a in J_ARCH_IDS for r in (False, True)]
 # architectures whose layers the port runs: all ten
@@ -40,16 +42,31 @@ def test_registry_matches():
     assert INPUT_SHAPES == J_INPUT_SHAPES
 
 
+def _defaults(cls, names):
+    return {f.name: f.default for f in dataclasses.fields(cls)
+            if f.name in names}
+
+
 @pytest.mark.parametrize("case", CASES, ids=_ids)
 def test_fields_and_derived_sizes_match_jax(case):
+    """Every field of the JAX config reads the same in the port's, and the
+    fields the port alone has (for its port-only configs) are at their
+    defaults, where they add no operation."""
     arch, reduced = case
     jc, tc = j_get_config(arch, reduced), get_config(arch, reduced)
     jf = {f.name for f in dataclasses.fields(jc)} - {"kernels"}
-    assert {f.name for f in dataclasses.fields(tc)} == jf
+    assert {f.name for f in dataclasses.fields(tc)} == jf | set(PORT_ONLY)
     for name in jf:
         assert getattr(tc, name) == getattr(jc, name), name
-    assert [dataclasses.asdict(g) for g in tc.groups()] \
-        == [dataclasses.asdict(g) for g in jc.groups()]
+    defaults = _defaults(ModelConfig, PORT_ONLY)
+    assert {n: getattr(tc, n) for n in PORT_ONLY} == defaults
+    group_defaults = _defaults(LayerGroup, PORT_ONLY_GROUP)
+    groups = []
+    for g in tc.groups():
+        d = dataclasses.asdict(g)
+        assert {n: d.pop(n) for n in PORT_ONLY_GROUP} == group_defaults
+        groups.append(d)
+    assert groups == [dataclasses.asdict(g) for g in jc.groups()]
     for prop in ("vocab_padded", "hd", "n_ssm_heads", "d_inner"):
         assert _prop(tc, prop) == _prop(jc, prop), prop
     assert tc.param_count() == jc.param_count()

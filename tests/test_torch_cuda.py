@@ -1227,10 +1227,11 @@ def test_compiled_train_step_on_the_card_matches_the_eager_step(cuda, arch):
 
 @pytest.mark.parametrize("arch", ["minicpm-2b", "mamba2-370m"])
 def test_the_tracer_times_a_replayed_step_inside_its_graph(cuda, arch):
-    """With the tracer on from set-up, each step graph holds its body's four
-    marks as timing events, replayed with it: a replayed step's gather,
-    model and scatter are positive and lie inside its device interval,
-    which lies inside the seconds it returned.  The same script on an
+    """With the tracer on from set-up, each step graph holds its body's
+    marks (the executor's four, the model's around its one group) as timing
+    events, replayed with it: a replayed step's gather, model, group and
+    scatter phases are positive and lie inside its device interval, which
+    lies inside the seconds it returned.  The same script on an
     executor set up with the tracer off (whose graphs hold no mark) makes
     the same tokens and the same launches per replay."""
     import numpy as np
@@ -1238,6 +1239,7 @@ def test_the_tracer_times_a_replayed_step_inside_its_graph(cuda, arch):
     from repro_torch.serving import ServedModel, graphs
     from repro_torch.serving.executor import ContinuousTorchExecutor
     cfg = get_config(arch, reduced=True)
+    group = "mamba" if arch == "mamba2-370m" else "attn"
     served = {"gen": ServedModel(cfg, prompt_len=24, gen_len=4)}
     toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (3, 24))
     out = {}
@@ -1255,13 +1257,14 @@ def test_the_tracer_times_a_replayed_step_inside_its_graph(cuda, arch):
             trace.enable(False)
         marks = st.steps[4].marks
         if on:
-            assert [n for n, _ in marks] == ["gather", "model", "scatter",
-                                             "end"]
+            assert [n for n, _ in marks] == ["gather", "model", group,
+                                             "model", "scatter", "end"]
             assert all(isinstance(e, torch.cuda.Event) for _, e in marks)
             steps = [s for s in trace.spans() if s.name == "executor.step"]
             assert [s.end - s.start for s in steps] == secs
             for s in steps:
-                assert list(s.phases) == ["gather", "model", "scatter"]
+                assert list(s.phases) == ["gather", "model", group,
+                                          "scatter"]
                 assert all(v > 0 for v in s.phases.values())
                 assert sum(s.phases.values()) < s.device_s < s.end - s.start
         else:

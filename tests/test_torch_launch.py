@@ -16,6 +16,7 @@ from repro.configs import all_configs as j_all_configs  # noqa: E402
 from repro.launch import serve as jserve  # noqa: E402
 from repro_torch.configs import all_configs  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
+from repro_torch.models.config import PORT_ONLY, ModelConfig  # noqa: E402
 
 SCRIPTED = [["--backend", "modeled"], ["--backend", "stub"],
             ["--backend", "stub-batched"],
@@ -105,9 +106,15 @@ def test_kernels_is_refused_and_device_reaches_only_the_torch_backends(
 
 @pytest.mark.parametrize("reduced", [False, True])
 def test_all_configs_equal_the_reference(reduced):
+    """Every config the launcher can name equals the JAX package's, the
+    port's own fields (``PORT_ONLY``) at their defaults."""
     got, want = all_configs(reduced), j_all_configs(reduced)
     assert list(got) == list(want)
+    defaults = {f.name: f.default for f in dataclasses.fields(ModelConfig)
+                if f.name in PORT_ONLY}
     for arch, cfg in got.items():
         j = dataclasses.asdict(want[arch])
         j.pop("kernels")
-        assert dataclasses.asdict(cfg) == j, arch
+        t = dataclasses.asdict(cfg)
+        assert {n: t.pop(n) for n in PORT_ONLY} == defaults, arch
+        assert t == j, arch

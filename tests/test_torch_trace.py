@@ -16,7 +16,9 @@ from repro_torch.sim import Experiment, simulate
 
 F32 = dict(compute_dtype="float32", param_dtype="float32")
 NAMES = {"executor.join", "executor.step", "stage", "launch", "sync"}
-PHASES = ["gather", "model", "scatter"]
+# a step's phases (reduced minicpm-2b: one attention group) and its marks
+PHASES = ["gather", "model", "attn", "scatter"]
+MARKS = ["gather", "model", "attn", "model", "scatter", "end"]
 
 
 class Replaying:
@@ -105,8 +107,9 @@ def test_with_the_tracer_off_a_served_window_records_nothing(monkeypatch):
 
 @pytest.mark.parametrize("on", [False, True])
 def test_a_program_holds_the_marks_its_capture_saw(monkeypatch, on):
-    """A step program captured with the tracer on holds its body's four
-    marks in order; one captured with it off, and every join, none."""
+    """A step program captured with the tracer on holds its body's marks
+    in order (the executor's four, and the model's around its one group);
+    one captured with it off, and every join, none."""
     monkeypatch.setattr(graphs, "graph_for", lambda device: Replaying)
     trace.clear()
     trace.enable(on)
@@ -117,8 +120,7 @@ def test_a_program_holds_the_marks_its_capture_saw(monkeypatch, on):
         trace.enable(False)
     for b in ex.buckets():
         assert st.joins[b].marks == []
-        assert [n for n, _ in st.steps[b].marks] == \
-            (PHASES + ["end"] if on else [])
+        assert [n for n, _ in st.steps[b].marks] == (MARKS if on else [])
 
 
 @pytest.mark.parametrize("kind", ["join", "step"])
@@ -151,9 +153,9 @@ def test_a_call_span_lasts_the_seconds_the_call_returned(tracing, kind):
 
 def test_gather_model_and_scatter_tile_the_step_body(tracing):
     """Off the card the body runs at every call and its marks take the
-    host's clock: the three phases follow one another inside the launch,
-    and the device interval (the stamps around stage and launch) holds
-    them."""
+    host's clock: the phases (the model's split into its group and the
+    rest) follow one another inside the launch, and the device interval
+    (the stamps around stage and launch) holds them."""
     ex = _executor()
     ex._ensure("gen")
     trace.clear()
@@ -227,3 +229,12 @@ def test_a_cpu_profile_holds_each_span_as_a_range(tracing):
         assert launch[0] <= stage[1] and sync[0] <= launch[1]
     got = trace_readings.clock_agreement(spans, host)
     assert got["pairs"] == len(spans) // 2 and got["unequal"] == []
+
+
+def test_phases_sum_the_phases_that_share_a_name():
+    marks = [("gather", 0.0), ("mamba", 1.0), ("attn", 3.0), ("mamba", 4.0),
+             ("model", 8.0), ("end", 8.5)]
+    assert trace.phases(marks) == {"gather": 1.0, "mamba": 6.0,
+                                   "attn": 1.0, "model": 0.5}
+    assert list(trace.phases(marks)) == ["gather", "mamba", "attn", "model"]
+    assert trace.phases(marks[:1]) == {}

@@ -3,6 +3,7 @@ spans and profiles: which calls they keep, what each number sums, and
 None where there is nothing to read."""
 import pytest
 
+from repro_torch import trace
 from repro_torch.trace import Span
 from repro_torch.trace_readings import (clock_agreement, profile_readings,
                                         summarize)
@@ -51,8 +52,53 @@ def test_summarize_reads_the_calls_outside_the_profiled_slices():
 def test_summarize_reads_none_with_no_call_to_read(spans, profiled):
     got = summarize(spans, profiled)
     assert got == dict(launch_ms=None, step_device_ms=None,
-                       slab_copy_ms=None, slab_in_place_pct=None,
+                       slab_copy_ms=None, step_mamba_ms=None,
+                       step_attn_ms=None, slab_in_place_pct=None,
                        call_idle_pct=None, join=None, step=None)
+
+
+def _hybrid_step(t0, groups):
+    """A step of a hybrid whose groups took ``groups`` [(kind, s)] between
+    the embedding's 1 ms and the head's 2 ms, as ``trace.phases`` sums the
+    marks of one name."""
+    marks, t = [("gather", 0.0), ("model", 0.001)], 0.002
+    for kind, sec in groups:
+        marks.append((kind, t))
+        t += sec
+    marks += [("model", t), ("scatter", t + 0.002), ("end", t + 0.003)]
+    return Span("executor.step", t0, t0 + 0.05, device_s=0.04,
+                phases=trace.phases(marks))
+
+
+def test_step_mamba_and_attn_ms_sum_each_kind_over_a_step_s_groups():
+    spans = [_hybrid_step(0.0, [("mamba", 0.005), ("attn", 0.001),
+                                ("mamba", 0.009), ("attn", 0.002),
+                                ("mamba", 0.004)]),
+             _hybrid_step(0.1, [("mamba", 0.010), ("attn", 0.004)]),
+             # profiled: left out
+             _hybrid_step(0.2, [("mamba", 1.0), ("attn", 1.0)])]
+    assert list(spans[0].phases) == ["gather", "model", "mamba", "attn",
+                                     "scatter"]
+    assert spans[0].phases == pytest.approx(
+        {"gather": 0.001, "model": 0.003, "mamba": 0.018, "attn": 0.003,
+         "scatter": 0.001})
+    got = summarize(spans, [(0.19, 0.26)])
+    assert got["step_mamba_ms"] == pytest.approx((18.0 + 10.0) / 2)
+    assert got["step_attn_ms"] == pytest.approx((3.0 + 4.0) / 2)
+    assert got["step"]["model_ms"] == pytest.approx(3.0)
+
+
+@pytest.mark.parametrize("kinds, want", [
+    (["attn"], ("step_mamba_ms",)),             # a dense model
+    (["mamba"], ("step_attn_ms",)),             # a pure SSM
+], ids=["dense", "ssm"])
+def test_a_step_group_reading_is_none_where_no_step_has_the_kind(kinds,
+                                                                want):
+    got = summarize([_hybrid_step(0.0, [(k, 0.003) for k in kinds])])
+    for name in want:
+        assert got[name] is None
+    other = ({"step_mamba_ms", "step_attn_ms"} - set(want)).pop()
+    assert got[other] == pytest.approx(3.0)
 
 
 def _step(t0, in_place, copied):
